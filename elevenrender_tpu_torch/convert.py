@@ -1,0 +1,52 @@
+"""Carry a scene across from the JAX package to the port.
+
+``ir_from_numpy(config_fields, ir_np, device)`` takes the JAX package's
+``(config, ir)`` as plain data, ``dataclasses.asdict(config)`` and
+``jax.tree.map(np.asarray, ir)``, and returns the port's
+``(RenderConfig, ir)``, with the CUDA traversal's tables built from
+``ir["bvh"]`` and the leaf-ordered ``ir["tris"]["verts"]``.  It is how
+the tests hand both packages the same scene.  ``ir_to`` moves an IR
+between devices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core.device import resolve_device
+from .ops.intersect import pack_tri_attributes
+from .ops.traverse import pack_tables
+from .scene.ir import RenderConfig, ir_to_torch
+
+_TRI_KEYS = ("verts", "normals", "uvs", "tangents", "sign", "mat")
+_BVH_KEYS = ("node_bmin", "node_bmax", "node_from", "node_to")
+_ENV_KEYS = ("img", "cdf", "rsum", "alias_prob", "alias_idx")
+
+
+def ir_from_numpy(config_fields: dict, ir_np: dict, device="cuda"):
+    dev = resolve_device(device)
+    config = RenderConfig(**config_fields)
+    tris = {k: np.asarray(ir_np["tris"][k]) for k in _TRI_KEYS}
+    tris["packed"] = (np.asarray(ir_np["tris"]["packed"])
+                      if "packed" in ir_np["tris"]
+                      else pack_tri_attributes(*(tris[k] for k in _TRI_KEYS)))
+    bvh = {k: np.asarray(ir_np["bvh"][k]) for k in _BVH_KEYS}
+    port = {
+        "tris": tris,
+        "bvh": bvh,
+        "kernel": pack_tables(bvh["node_bmin"], bvh["node_bmax"],
+                              bvh["node_from"], bvh["node_to"],
+                              tris["verts"], config.bvh_depth),
+        "materials": dict(ir_np["materials"]),
+        "env": {k: ir_np["env"][k] for k in _ENV_KEYS if k in ir_np["env"]},
+        "camera": dict(ir_np["camera"]),
+        "lights": dict(ir_np["lights"]),
+    }
+    return config, ir_to_torch(port, dev)
+
+
+def ir_to(ir: dict, device) -> dict:
+    """The same IR with every tensor on ``device``."""
+    dev = resolve_device(device)
+    return {grp: {k: v.to(dev) for k, v in leaves.items()}
+            for grp, leaves in ir.items()}

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source under ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface and loaded
+with ``ctypes``.  Nothing is built at import time: a library is built at
+its first use (or by ``build_all``, which starts one ``nvcc`` per source
+at once) into ``build/kernels/`` beside the package, keyed by a hash of
+its source and flags, so a changed source rebuilds and an unchanged one
+loads at once.  A failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+
+# name -> (sources, extra nvcc flags).  --fmad=false keeps every float
+# op of the traversal separately rounded, as its plain version is.
+LIBRARIES = {
+    "bvh_traverse": (("bvh_traverse.cu",), ("--fmad=false",)),
+}
+BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": build time or 0.0 when cached, "log": nvcc output}
+build_info: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): cannot build CUDA kernels")
+
+
+def _target(name: str) -> tuple[Path, list[str]]:
+    sources, flags = LIBRARIES[name]
+    paths = [CSRC / s for s in sources]
+    h = hashlib.sha256()
+    for p in paths:
+        h.update(p.read_bytes())
+    h.update(" ".join(BASE_FLAGS + flags).encode())
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    cmd = [*BASE_FLAGS, *flags, *map(str, paths)]
+    return out, cmd
+
+
+def build_all(names=None) -> None:
+    """Build every library that is not built yet, one nvcc process per
+    library, all started together."""
+    names = list(LIBRARIES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out, cmd = _target(name)
+        if out.exists():
+            build_info.setdefault(name, {"seconds": 0.0, "log": "cached"})
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out, time.time())
+    errors = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        build_info[name] = {"seconds": time.time() - t0, "log": log}
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name} (exit {proc.returncode}):"
+                          f"\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        out, _ = _target(name)
+        if not out.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(out))
+        _loaded[name] = lib
+    return lib

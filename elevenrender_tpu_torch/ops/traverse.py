@@ -1,0 +1,381 @@
+"""BVH traversal: the CUDA kernel's wrapper, its plain version, brute force.
+
+``traverse`` is what the integrator calls.  On a CUDA tensor it launches
+the hand-written kernel ``csrc/bvh_traverse.cu`` (the port of the TPU
+kernel ``elevenrender_tpu/ops/bvh_pallas.py:_kernel``) or raises; on a
+CPU tensor, and only there, it runs ``traverse_plain``, a lockstep
+per-ray stack walk in PyTorch with the kernel's visit order, prune,
+Möller-Trumbore arithmetic and any-hit rule, so the two give the same
+ids and bit-equal t.  ``brute_force`` tests every tri, for tiny scenes.
+
+Kernel tables (``pack_tables``, built by ``build_ir``/``ir_from_numpy``):
+  boxes  f32 [NN, 12]: row p = both children of interior node p
+         (left bmin, left bmax, right bmin, right bmax), read as 3 float4;
+  leaves i32 [NN, 4]:  row p = (l_from, l_to, r_from, r_to) of leaf
+         parent p;
+  tris   f32 [T, 12]:  (v0, 0, e1, 0, e2, 0) per tri in leaf order, with
+         e1 = v1 - v0 and e2 = v2 - v0 precomputed in float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .bvh import preorder_indices
+from .intersect import moller_trumbore
+
+STACK = 32  # the kernel's per-thread stack (csrc/bvh_traverse.cu kStack)
+
+# Kernel launches since the last reset: all of them, and the any-hit ones.
+launches = 0
+any_hit_launches = 0
+
+
+def reset_counts() -> None:
+    global launches, any_hit_launches
+    launches = 0
+    any_hit_launches = 0
+
+
+def pack_tables(node_bmin, node_bmax, node_from, node_to, verts_sorted,
+                depth: int) -> dict:
+    """Host-side kernel tables (numpy) from the flat BVH arrays and the
+    leaf-ordered tri vertices [T, 3, 3]."""
+    node_bmin = np.asarray(node_bmin, np.float32)
+    node_bmax = np.asarray(node_bmax, np.float32)
+    nn = node_bmin.shape[0]
+    boxes = np.zeros((nn, 12), np.float32)
+    leaves = np.zeros((nn, 4), np.int32)
+    pre = preorder_indices(depth)
+    for d in range(depth):
+        p = pre[d]
+        l = p + 1
+        r = p + (1 << (depth - d))
+        boxes[p, 0:3] = node_bmin[l]
+        boxes[p, 3:6] = node_bmax[l]
+        boxes[p, 6:9] = node_bmin[r]
+        boxes[p, 9:12] = node_bmax[r]
+        if d == depth - 1:
+            leaves[p, 0] = node_from[l]
+            leaves[p, 1] = node_to[l]
+            leaves[p, 2] = node_from[r]
+            leaves[p, 3] = node_to[r]
+    v = np.asarray(verts_sorted, np.float32).reshape(-1, 3, 3)
+    tris = np.zeros((v.shape[0], 12), np.float32)
+    tris[:, 0:3] = v[:, 0]
+    tris[:, 4:7] = v[:, 1] - v[:, 0]
+    tris[:, 8:11] = v[:, 2] - v[:, 0]
+    return {"boxes": boxes, "leaves": leaves, "tris": tris}
+
+
+# --------------------------------------------------------------------------
+# Dispatch
+# --------------------------------------------------------------------------
+
+def traverse(tables: dict, ray_o, ray_d, depth: int, exclude=None,
+             t_max=None):
+    """Nearest hit (or, with ``exclude`` [N] i32 and ``t_max`` [N] f32,
+    occlusion) of rays [N, 3] against the tables' BVH.
+
+    Returns (idx [N] i32, t [N] f32): the leaf-order tri id (-1 on a
+    miss) and its distance.  In any-hit mode ``idx >= 0`` is the
+    occlusion flag and t is -inf on a hit."""
+    if (exclude is None) != (t_max is None):
+        raise ValueError("exclude and t_max come together (any-hit mode)")
+    if ray_o.device.type == "cpu":
+        return traverse_plain(tables, ray_o, ray_d, depth, exclude, t_max)
+    if ray_o.device.type != "cuda":
+        raise ValueError(f"traverse: unsupported device {ray_o.device}")
+    return _launch(tables, ray_o, ray_d, depth, exclude, t_max)
+
+
+def _check(name, x, dtype, shape, device):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from .. import kernels
+        lib = kernels.load("bvh_traverse")
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.bvh_traverse.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.bvh_traverse.restype = ctypes.c_int
+        lib.bvh_traverse_error_string.argtypes = [ctypes.c_int]
+        lib.bvh_traverse_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _launch(tables, ray_o, ray_d, depth, exclude, t_max):
+    global launches, any_hit_launches
+    dev = ray_o.device
+    n = ray_o.shape[0]
+    nn = tables["boxes"].shape[0]
+    if depth < 1 or depth + 2 > STACK:
+        raise ValueError(f"bvh depth {depth} outside the kernel's range "
+                         f"[1, {STACK - 2}]")
+    if nn != (1 << (depth + 1)) - 1:
+        raise ValueError(f"boxes has {nn} rows, depth {depth} needs "
+                         f"{(1 << (depth + 1)) - 1}")
+    _check("boxes", tables["boxes"], torch.float32, (nn, 12), dev)
+    _check("leaves", tables["leaves"], torch.int32, (nn, 4), dev)
+    t_rows = tables["tris"].shape[0]
+    _check("tris", tables["tris"], torch.float32, (t_rows, 12), dev)
+    _check("ray_o", ray_o, torch.float32, (n, 3), dev)
+    _check("ray_d", ray_d, torch.float32, (n, 3), dev)
+    any_hit = exclude is not None
+    if any_hit:
+        _check("exclude", exclude, torch.int32, (n,), dev)
+        _check("t_max", t_max, torch.float32, (n,), dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.bvh_traverse(
+            tables["boxes"].data_ptr(), tables["leaves"].data_ptr(),
+            tables["tris"].data_ptr(), ray_o.data_ptr(), ray_d.data_ptr(),
+            exclude.data_ptr() if any_hit else None,
+            t_max.data_ptr() if any_hit else None,
+            idx.data_ptr(), t.data_ptr(), n, depth, int(any_hit), stream)
+    if rc != 0:
+        raise RuntimeError("bvh_traverse launch failed: "
+                           + lib.bvh_traverse_error_string(rc).decode())
+    if n > 0:
+        launches += 1
+        any_hit_launches += int(any_hit)
+    return idx, t
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch version
+# --------------------------------------------------------------------------
+
+def _mn(a, b):
+    return torch.where(a < b, a, b)
+
+
+def _mx(a, b):
+    return torch.where(a > b, a, b)
+
+
+def _slab(bmin, bmax, o, inv, best_t):
+    t1 = (bmin[:, 0] - o[:, 0]) * inv[:, 0]
+    t2 = (bmax[:, 0] - o[:, 0]) * inv[:, 0]
+    t3 = (bmin[:, 1] - o[:, 1]) * inv[:, 1]
+    t4 = (bmax[:, 1] - o[:, 1]) * inv[:, 1]
+    t5 = (bmin[:, 2] - o[:, 2]) * inv[:, 2]
+    t6 = (bmax[:, 2] - o[:, 2]) * inv[:, 2]
+    tmin = _mx(_mx(_mn(t1, t2), _mn(t3, t4)), _mn(t5, t6))
+    tmax = _mn(_mn(_mx(t1, t2), _mx(t3, t4)), _mx(t5, t6))
+    hit = ~((tmax < 0.0) | (tmin > tmax)) & (tmin < best_t)
+    return hit, torch.where(hit, tmin, torch.full_like(tmin, float("inf")))
+
+
+def _mt(tri, o, d):
+    """The kernel's Möller-Trumbore, op for op: tri [..., 12], o/d
+    broadcastable [..., 3].  Returns (ok without the best_t test, t)."""
+    v0x, v0y, v0z = tri[..., 0], tri[..., 1], tri[..., 2]
+    e1x, e1y, e1z = tri[..., 4], tri[..., 5], tri[..., 6]
+    e2x, e2y, e2z = tri[..., 8], tri[..., 9], tri[..., 10]
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-30,
+                                torch.full_like(det, 1e-30), det)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = ((torch.abs(det) > 1e-7) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t >= 0.0))
+    return ok, t
+
+
+# Elements of one batched leaf scan ([rays, slots]): 2^23 bound the
+# scan's temporaries to about 2 GB at the main path's ray counts.
+_LEAF_CHUNK = 1 << 23
+
+
+def _leaf_scan(tris, lv, l_over, r_over, o, d, best_idx, best_t, excl,
+               any_hit):
+    """Scans the right child's slots then the left's for each ray, in one
+    batched pass, with the sequential rules: closest-hit keeps the first
+    slot (in scan order) of least t below best_t; any-hit keeps the first
+    accepted slot.  Returns (idx, t, hit, tested slots)."""
+    nr = torch.where(r_over, lv[:, 3] - lv[:, 2], torch.zeros_like(lv[:, 0]))
+    nl = torch.where(l_over, lv[:, 1] - lv[:, 0], torch.zeros_like(lv[:, 0]))
+    total = nr + nl
+    width = int(total.max()) if total.numel() else 0
+    out_idx = best_idx.clone()
+    out_t = best_t.clone()
+    hit = torch.zeros_like(l_over)
+    tested = total.clone()
+    if width == 0:
+        return out_idx, out_t, hit, tested
+    rows = max(1, _LEAF_CHUNK // width)
+    j = torch.arange(width, device=o.device)
+    for s in range(0, lv.shape[0], rows):
+        e = min(s + rows, lv.shape[0])
+        jr = j[None, :]
+        slot = torch.where(jr < nr[s:e, None], lv[s:e, 2:3] + jr,
+                           lv[s:e, 0:1] + (jr - nr[s:e, None]))
+        valid = jr < total[s:e, None]
+        tri = tris[torch.where(valid, slot, torch.zeros_like(slot))]
+        ok, t = _mt(tri, o[s:e, None, :], d[s:e, None, :])
+        ok = valid & ok & (t < best_t[s:e, None])
+        if any_hit:
+            ok = ok & (slot != excl[s:e, None])
+            first = torch.argmax(ok.to(torch.int8), dim=1)
+            has = ok.any(dim=1)
+            pick_t = torch.full_like(best_t[s:e], float("-inf"))
+            tested[s:e] = torch.where(has, first + 1, total[s:e])
+        else:
+            tm = torch.where(ok, t, torch.full_like(t, float("inf")))
+            tmin = tm.min(dim=1).values
+            has = ok.any(dim=1)
+            first = torch.argmax((ok & (tm == tmin[:, None])).to(torch.int8),
+                                 dim=1)
+            pick_t = tmin
+        pick = slot.gather(1, first[:, None])[:, 0]
+        out_idx[s:e] = torch.where(has, pick, out_idx[s:e])
+        out_t[s:e] = torch.where(has, pick_t, out_t[s:e])
+        hit[s:e] = has
+    return out_idx, out_t, hit, tested
+
+
+def traverse_plain(tables: dict, ray_o, ray_d, depth: int, exclude=None,
+                   t_max=None, counters: bool = False):
+    """The kernel's walk as lockstep PyTorch over the still-active rays.
+
+    Same results as the kernel (ids equal, t bit-equal).  With
+    ``counters=True`` also returns per-ray work counts {"visits": interior
+    node visits, "tests": Möller-Trumbore tests}, the inputs to the
+    kernel's bound."""
+    dev = ray_o.device
+    n = ray_o.shape[0]
+    any_hit = exclude is not None
+    boxes, leaves, tris = tables["boxes"], tables["leaves"], tables["tris"]
+    leaves = leaves.to(torch.int64)
+    inv = 1.0 / ray_d
+    best_idx = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_t = (t_max.clone() if any_hit
+              else torch.full((n,), float("inf"), device=dev))
+    excl = exclude.to(torch.int64) if any_hit else None
+    stack_node = torch.full((n, depth + 2), -1, dtype=torch.int64, device=dev)
+    stack_dep = torch.zeros((n, depth + 2), dtype=torch.int64, device=dev)
+    node = torch.zeros((n,), dtype=torch.int64, device=dev)
+    ndep = torch.zeros_like(node)
+    sp = torch.ones_like(node)
+    visits = torch.zeros_like(node)
+    tests = torch.zeros_like(node)
+    act = torch.arange(n, device=dev)
+    while act.numel():
+        nd, dep, bt = node[act], ndep[act], best_t[act]
+        o, iv = ray_o[act], inv[act]
+        b = boxes[nd]
+        l_over, l_near = _slab(b[:, 0:3], b[:, 3:6], o, iv, bt)
+        r_over, r_near = _slab(b[:, 6:9], b[:, 9:12], o, iv, bt)
+        alp = dep == depth - 1
+        visits[act] += 1
+        resolved = torch.zeros_like(alp)
+        at_leaf = alp & (l_over | r_over)
+        if bool(at_leaf.any()):
+            sel = at_leaf.nonzero()[:, 0]
+            ga = act[sel]
+            idx2, t2, hit, tested = _leaf_scan(
+                tris, leaves[nd[sel]], l_over[sel], r_over[sel], ray_o[ga],
+                ray_d[ga], best_idx[ga], best_t[ga],
+                excl[ga] if any_hit else None, any_hit)
+            best_idx[ga] = idx2
+            best_t[ga] = t2
+            tests[ga] += tested
+            if any_hit:
+                resolved[sel] = hit
+        trav_l = l_over & ~alp
+        trav_r = r_over & ~alp
+        push = trav_l & trav_r
+        pop = ~trav_l & ~trav_r
+        l_idx = nd + 1
+        r_idx = nd + (1 << (depth - dep))
+        l_first = l_near <= r_near
+        first = torch.where(l_first, l_idx, r_idx)
+        second = torch.where(l_first, r_idx, l_idx)
+        s = sp[act]
+        if bool(push.any()):
+            stack_node[act[push], s[push]] = second[push]
+            stack_dep[act[push], s[push]] = dep[push] + 1
+        sp_pop = torch.clamp(s - 1, min=0)
+        popped_node = stack_node[act, sp_pop]
+        popped_dep = stack_dep[act, sp_pop]
+        node[act] = torch.where(push, first, torch.where(
+            trav_l, l_idx, torch.where(trav_r, r_idx, popped_node)))
+        ndep[act] = torch.where(pop, popped_dep, dep + 1)
+        sp[act] = torch.where(push, s + 1, torch.where(pop, s - 1, s))
+        done = (pop & (popped_node < 0)) | resolved
+        act = act[~done]
+    out = (best_idx.to(torch.int32), best_t)
+    if counters:
+        return out + ({"visits": visits, "tests": tests},)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Brute force
+# --------------------------------------------------------------------------
+
+def brute_force(tri_verts, ray_o, ray_d, chunk: int = 512):
+    """Tests every tri (in chunks of ``chunk``): (idx [N] i64, t [N] f32),
+    first least t on ties, as the JAX package's ``brute_force``."""
+    T = tri_verts.shape[0]
+    N = ray_o.shape[0]
+    dev = ray_o.device
+    best_idx = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    best_t = torch.full((N,), float("inf"), device=dev)
+    if T == 0:
+        return best_idx, best_t
+    n_chunks = -(-T // chunk)
+    pad = n_chunks * chunk - T
+    v = torch.cat([tri_verts, torch.zeros((pad, 3, 3), dtype=tri_verts.dtype,
+                                          device=dev)])
+    for c in range(n_chunks):
+        base = c * chunk
+        vb = v[base:base + chunk]
+        valid, t, _, _ = moller_trumbore(
+            ray_o[:, None, :], ray_d[:, None, :],
+            vb[None, :, 0], vb[None, :, 1], vb[None, :, 2])
+        idx = base + torch.arange(chunk, device=dev)[None, :]
+        valid = valid & (idx < T)
+        t = torch.where(valid, t, torch.full_like(t, float("inf")))
+        arg = torch.argmin(t, dim=1)
+        tmin = t.gather(1, arg[:, None])[:, 0]
+        better = tmin < best_t
+        best_idx = torch.where(better, base + arg, best_idx)
+        best_t = torch.where(better, tmin, best_t)
+    return best_idx, best_t

@@ -1,0 +1,115 @@
+"""PyTorch port, isolation: the port and chip_smoke.py import neither jax
+nor the JAX package, and the entry points never fall back to the CPU on
+their own."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "elevenrender_tpu_torch")
+SMOKE = os.path.join(REPO, "chip_smoke.py")
+
+_BLOCK = ("import sys\n"
+          "sys.modules['jax'] = None\n"
+          "sys.modules['elevenrender_tpu'] = None\n")
+
+
+def _port_files():
+    out = [SMOKE]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(path):
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20
+    for path in files:
+        for name in _imported(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "elevenrender_tpu"), \
+                (path, name)
+
+
+def _run(code, **kw):
+    return subprocess.run([sys.executable, "-c", _BLOCK + code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300, **kw)
+
+
+def test_port_imports_and_renders_without_jax():
+    code = """
+import importlib, pkgutil
+import numpy as np
+import elevenrender_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from elevenrender_tpu_torch.render.renderer import Renderer
+from elevenrender_tpu_torch.scene.demo import heightfield_scene
+_, config, ir = heightfield_scene(grid=10, res=8, device="cpu")
+r = Renderer(config, ir, device="cpu")
+r.step(1)
+img = r.get_pass("beauty").reshape(8, 8, 4)
+assert np.isfinite(img).all() and img[..., :3].mean() > 0.0
+print("rendered", float(img[..., :3].mean()))
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "rendered" in res.stdout
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    """Without CUDA the smoke test exits non-zero and prints no result;
+    its failure is the missing card, not a missing jax."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    code = "import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')"
+    res = _run(code)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    assert "CUDA" in res.stderr and "jax" not in res.stderr
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from elevenrender_tpu_torch.convert import ir_from_numpy
+    from elevenrender_tpu_torch.render import integrator
+    from elevenrender_tpu_torch.render.renderer import Renderer
+    from elevenrender_tpu_torch.scene import demo
+
+    scene, config, ir = demo.heightfield_scene(grid=6, res=8, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Renderer(config, ir)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scene.build()
+    with pytest.raises(RuntimeError, match="cuda"):
+        integrator.init_state(config)
+    state = integrator.init_state(config, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        integrator.render_sample(config, ir, state)
+    ir_np = {g: {k: v.numpy() for k, v in leaves.items()}
+             for g, leaves in ir.items()}
+    import dataclasses
+    with pytest.raises(RuntimeError, match="cuda"):
+        ir_from_numpy(dataclasses.asdict(config), ir_np)
+    # With device="cpu" the same calls work.
+    cfg2, ir2 = ir_from_numpy(dataclasses.asdict(config), ir_np,
+                              device="cpu")
+    np.testing.assert_array_equal(ir2["kernel"]["boxes"].numpy(),
+                                  ir["kernel"]["boxes"].numpy())

@@ -1,0 +1,89 @@
+"""PyTorch port, host scene layer: its own numpy copies of the BVH
+build, the HDRI packing and build_ir must give exactly what the JAX
+package gives for the same scene."""
+
+import dataclasses
+
+import numpy as np
+import jax
+import pytest
+
+from elevenrender_tpu.ops.bvh import build_bvh as jax_build_bvh
+from elevenrender_tpu.ops.hdri import pack_hdri as jax_pack_hdri
+from elevenrender_tpu.scene.hdri import HDRI as JaxHDRI
+from elevenrender_tpu.scene.texture import Texture as JaxTexture
+from elevenrender_tpu_torch.convert import ir_from_numpy
+from elevenrender_tpu_torch.ops.bvh import build_bvh
+from elevenrender_tpu_torch.ops.hdri import pack_hdri
+from elevenrender_tpu_torch.scene import demo
+from elevenrender_tpu_torch.scene.hdri import HDRI
+from elevenrender_tpu_torch.scene.texture import Texture
+
+from scenes import heightfield_scene
+from test_pallas import random_scene
+
+
+@pytest.mark.parametrize("n_tris,depth,seed", [(37, None, 0),
+                                               (300, None, 1),
+                                               (1000, None, 2),
+                                               (500, 6, 3)])
+def test_build_bvh_equals_jax_numpy_build(n_tris, depth, seed):
+    tris, _, _ = random_scene(n_tris, 1, seed=seed)
+    ref = jax_build_bvh(tris, depth=depth, use_native=False)
+    got = build_bvh(tris, depth=depth)
+    assert got["depth"] == ref["depth"]
+    assert got["max_leaf"] == ref["max_leaf"]
+    for k in ("perm", "node_from", "node_to", "node_bmin", "node_bmax"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def test_build_bvh_heightfield_equals_jax():
+    verts = demo.heightfield_mesh(40).verts
+    ref = jax_build_bvh(verts, use_native=False)
+    got = build_bvh(verts)
+    assert (got["depth"], got["max_leaf"]) == (ref["depth"], ref["max_leaf"])
+    for k in ("perm", "node_from", "node_to", "node_bmin", "node_bmax"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 3), (1, 1, 3), (9, 7, 1)])
+def test_pack_hdri_equals_jax(shape):
+    img = np.random.default_rng(4).uniform(0, 2, shape).astype(np.float32)
+    img[0, 0] = 40.0
+    got = pack_hdri(HDRI(Texture("sky", img)), alias_table=True)
+    ref = jax_pack_hdri(JaxHDRI(JaxTexture("sky", img)), alias_table=True)
+    for k in ("img", "cdf", "rsum", "alias_prob", "alias_idx"):
+        np.testing.assert_array_equal(np.asarray(got[k]),
+                                      np.asarray(ref[k]), err_msg=k)
+
+
+def test_build_ir_equals_converted_jax_ir(monkeypatch):
+    """The port's own scene build (scene/demo.py) against the JAX
+    package's build of the same heightfield, carried across by
+    ir_from_numpy; the JAX side uses its numpy BVH build."""
+    monkeypatch.setenv("ELEVENRT_NATIVE", "0")
+    _, jcfg, jir = heightfield_scene(grid=24, res=16, compat=False)
+    cfg_c, ir_c = ir_from_numpy(dataclasses.asdict(jcfg),
+                                jax.tree.map(np.asarray, jir), device="cpu")
+    _, cfg_p, ir_p = demo.heightfield_scene(grid=24, res=16, compat=False,
+                                            device="cpu")
+    for f in ("x_res", "y_res", "bvh_depth", "bvh_max_leaf", "bokeh",
+              "n_lights", "tex_slots_used", "tex_uniform_filter",
+              "use_shaders", "compat", "sample_target"):
+        assert getattr(cfg_p, f) == getattr(cfg_c, f), f
+    assert ir_p.keys() == ir_c.keys()
+    for grp in ir_p:
+        assert ir_p[grp].keys() == ir_c[grp].keys(), grp
+        for k in ir_p[grp]:
+            np.testing.assert_array_equal(ir_p[grp][k].numpy(),
+                                          ir_c[grp][k].numpy(),
+                                          err_msg=f"{grp}.{k}")
+
+
+def test_render_config_has_the_jax_fields_and_defaults():
+    from elevenrender_tpu.scene.ir import RenderConfig as JaxConfig
+    from elevenrender_tpu_torch.scene.ir import RenderConfig
+    assert (dataclasses.asdict(RenderConfig())
+            == dataclasses.asdict(JaxConfig()))
+    assert ([f.name for f in dataclasses.fields(RenderConfig)]
+            == [f.name for f in dataclasses.fields(JaxConfig)])

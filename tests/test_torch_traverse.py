@@ -1,0 +1,166 @@
+"""PyTorch port, traversal: the plain version of the CUDA kernel (what
+``traverse`` runs on a CPU tensor) against the JAX package's Pallas
+kernel, run in interpret mode on the same numpy rays and tables.
+
+Ids must be equal except on equal-t ties (a per-ray walk and the TPU's
+4096-ray packets may visit tied tris in another order).  t agrees to
+rtol 2e-6 on hits, not 1e-6: the port rounds every op, as the CUDA
+kernel built with --fmad=false does, while XLA's CPU backend contracts
+a*b+c into one FMA in the interpreted kernel; on grazing heightfield
+rays that alone moved t by up to 1.03e-6 relative.  The any-hit
+occlusion flag must be equal on every ray.
+"""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from elevenrender_tpu.ops.bvh import brute_force as jax_brute_force
+from elevenrender_tpu.ops.bvh import build_bvh as jax_build_bvh
+from elevenrender_tpu.ops.bvh_pallas import (pack_bvh_for_pallas,
+                                             traverse_pallas)
+from elevenrender_tpu_torch.convert import ir_from_numpy
+from elevenrender_tpu_torch.ops import traverse as tt
+
+from scenes import heightfield_scene
+from test_pallas import random_scene
+
+
+def _random_case():
+    tris, o, d = random_scene(300, 1500, seed=0)
+    bvh = jax_build_bvh(tris, use_native=False)
+    st = tris[bvh["perm"]]
+    nodes, leaf, tris9 = pack_bvh_for_pallas(bvh, st)
+    tables = {k: torch.tensor(v) for k, v in tt.pack_tables(
+        bvh["node_bmin"], bvh["node_bmax"], bvh["node_from"],
+        bvh["node_to"], st, bvh["depth"]).items()}
+    return dict(packed=(nodes, leaf, tris9), depth=bvh["depth"],
+                max_leaf=bvh["max_leaf"], tables=tables, verts=st,
+                o=np.asarray(o), d=np.asarray(d))
+
+
+def _heightfield_case():
+    _, config, ir = heightfield_scene(grid=24, res=16, compat=False)
+    cfg, tir = ir_from_numpy(dataclasses.asdict(config),
+                             jax.tree.map(np.asarray, ir), device="cpu")
+    rng = np.random.default_rng(3)
+    n = 2000
+    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(0.3, 2.0, n)
+    o[:200] = [0.0, 1.5, -4.0]  # camera-like rays share one origin
+    d = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    d[:, 1] -= 0.5
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    bp = ir["bvh_packed"]
+    return dict(packed=(bp["nodes"], bp["leaf"], bp["tris9"]),
+                depth=cfg.bvh_depth, max_leaf=cfg.bvh_max_leaf,
+                tables=tir["kernel"], verts=np.asarray(ir["tris"]["verts"]),
+                o=o, d=d)
+
+
+_CASES = {"random300": _random_case, "heightfield24": _heightfield_case}
+
+
+@pytest.fixture(scope="module", params=sorted(_CASES))
+def case(request):
+    c = _CASES[request.param]()
+    c["jax"] = traverse_pallas(*c["packed"], jnp.asarray(c["o"]),
+                               jnp.asarray(c["d"]), depth=c["depth"],
+                               max_leaf=c["max_leaf"], interpret=True)
+    return c
+
+
+def _tri_t(tables, ids, o, d):
+    """t of each ray against one given tri, by the kernel's arithmetic."""
+    _, t = tt._mt(tables["tris"][torch.as_tensor(ids).long()],
+                  torch.tensor(o), torch.tensor(d))
+    return t.numpy()
+
+
+def test_closest_hit_matches_jax_pallas(case):
+    ji, jt = (np.asarray(a) for a in case["jax"])
+    ti, tt_ = tt.traverse_plain(case["tables"], torch.tensor(case["o"]),
+                                torch.tensor(case["d"]), case["depth"])
+    ti, tt_ = ti.numpy(), tt_.numpy()
+    assert (ji >= 0).sum() > 100
+    np.testing.assert_array_equal(ti >= 0, ji >= 0)
+    diff = np.nonzero(ti != ji)[0]
+    # Any id mismatch must be an equal-t tie: the JAX-chosen tri gives
+    # the same t within 1e-6 relative.
+    if diff.size:
+        t_alt = _tri_t(case["tables"], ji[diff], case["o"][diff],
+                       case["d"][diff])
+        np.testing.assert_allclose(t_alt, tt_[diff], rtol=1e-6)
+    hit = ji >= 0
+    np.testing.assert_allclose(tt_[hit], jt[hit], rtol=2e-6)
+
+
+@pytest.mark.parametrize("t_max_kind", ["inf", "mixed"])
+def test_any_hit_flag_matches_jax_pallas(case, t_max_kind):
+    n = case["o"].shape[0]
+    rng = np.random.default_rng(5)
+    closest = np.asarray(case["jax"][0]).astype(np.int32)
+    # Exclude each ray's own closest hit (a shadow ray's source tri) on
+    # most rays, nothing on the rest.
+    exclude = np.where(rng.uniform(size=n) < 0.8, closest, -1).astype(
+        np.int32)
+    t_max = np.full(n, np.inf, np.float32)
+    if t_max_kind == "mixed":
+        t_max = np.where(rng.uniform(size=n) < 0.5, t_max,
+                         rng.uniform(0.05, 4.0, n)).astype(np.float32)
+    ji, _ = traverse_pallas(*case["packed"], jnp.asarray(case["o"]),
+                            jnp.asarray(case["d"]), depth=case["depth"],
+                            max_leaf=case["max_leaf"], interpret=True,
+                            exclude=jnp.asarray(exclude),
+                            t_max=jnp.asarray(t_max))
+    ti, tt_ = tt.traverse_plain(case["tables"], torch.tensor(case["o"]),
+                                torch.tensor(case["d"]), case["depth"],
+                                torch.tensor(exclude), torch.tensor(t_max))
+    flag = np.asarray(ji) >= 0
+    assert 0 < flag.sum() < n
+    np.testing.assert_array_equal(ti.numpy() >= 0, flag)
+    assert np.all(tt_.numpy()[flag] == -np.inf)
+    # Every reported occluder is a real one: not excluded, in range.
+    ids = ti.numpy()[flag]
+    assert np.all(ids != exclude[flag])
+    t_occ = _tri_t(case["tables"], ids, case["o"][flag], case["d"][flag])
+    assert np.all((t_occ >= 0) & (t_occ < t_max[flag]))
+
+
+def test_counters_and_dispatch(case):
+    """traverse() on CPU tensors is the plain version and launches no
+    kernel; the counters see every ray."""
+    tt.reset_counts()
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    i1, t1 = tt.traverse(case["tables"], o, d, case["depth"])
+    i2, t2, cnt = tt.traverse_plain(case["tables"], o, d, case["depth"],
+                                    counters=True)
+    assert tt.launches == 0 and tt.any_hit_launches == 0
+    assert torch.equal(i1, i2) and torch.equal(t1, t2)
+    assert int(cnt["visits"].min()) >= 1
+    assert int(cnt["tests"][i2 >= 0].min()) >= 1
+
+
+def test_brute_force_matches_jax(case):
+    verts = case["verts"]
+    ji, jt = jax_brute_force(jnp.asarray(verts), jnp.asarray(case["o"]),
+                             jnp.asarray(case["d"]))
+    ti, tt_ = tt.brute_force(torch.tensor(verts), torch.tensor(case["o"]),
+                             torch.tensor(case["d"]))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    hit = np.asarray(ji) >= 0
+    np.testing.assert_allclose(tt_.numpy()[hit], np.asarray(jt)[hit],
+                               rtol=1e-6)
+
+
+def test_wrapper_refuses_other_devices():
+    z = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError):
+        tt.traverse({}, z, z, 3)
+    with pytest.raises(ValueError):
+        tt.traverse({}, torch.zeros((4, 3)), torch.zeros((4, 3)), 3,
+                    exclude=torch.zeros(4, dtype=torch.int32))
