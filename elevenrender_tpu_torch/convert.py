@@ -21,6 +21,7 @@ from .scene.ir import RenderConfig, ir_to_torch
 _TRI_KEYS = ("verts", "normals", "uvs", "tangents", "sign", "mat")
 _BVH_KEYS = ("node_bmin", "node_bmax", "node_from", "node_to")
 _ENV_KEYS = ("img", "cdf", "rsum", "alias_prob", "alias_idx")
+_ATLAS_KEYS = ("data", "off", "w", "h", "ch", "filter")
 
 
 def ir_from_numpy(config_fields: dict, ir_np: dict, device="cuda"):
@@ -38,6 +39,7 @@ def ir_from_numpy(config_fields: dict, ir_np: dict, device="cuda"):
                               bvh["node_from"], bvh["node_to"],
                               tris["verts"], config.bvh_depth),
         "materials": dict(ir_np["materials"]),
+        "atlas": {k: np.asarray(ir_np["atlas"][k]) for k in _ATLAS_KEYS},
         "env": {k: ir_np["env"][k] for k in _ENV_KEYS if k in ir_np["env"]},
         "camera": dict(ir_np["camera"]),
         "lights": dict(ir_np["lights"]),

@@ -3,7 +3,12 @@
 // Replaces the TPU kernel elevenrender_tpu/ops/bvh_pallas.py:_kernel
 // (reached through traverse_pallas -> pl.pallas_call), in both of the
 // modes the forward render step uses: closest-hit for path rays and
-// any-hit (exclude / t_max) for shadow rays.
+// any-hit (exclude / t_max) for shadow rays.  It also serves the TPU
+// kernel's stream residency (stream=True: the tri table in HBM, one DMA
+// per leaf-parent visit), which exists only because VMEM cannot hold
+// the tris of a large scene; here every table is read from global
+// memory through the read-only path, at any tri count the wrapper
+// admits (its 32-bit 3*i row indexing bounds tris and rays).
 //
 // Design: one thread per ray walks the implicit complete binary BVH
 // (preorder, left = node+1, right = node + 2^(D-depth)) with a private
@@ -24,11 +29,14 @@
 //
 // What bounds it on this card: the work is fp32 arithmetic on the CUDA
 // cores (about 50 ops per interior visit, 55 per triangle test), against
-// a few tens of MB of rays and tables that stay in L2; so operations,
-// counted from the visits and tests of the run's own rays, set the
-// bound, and divergence between the rays of a warp is what keeps the
-// kernel from it.  Warp-coherent traversal, a wide (4- or 8-ary) BVH,
-// compressed nodes and FMA are later work.
+// a few tens of MB of rays and tables; so operations, counted from the
+// visits and tests of the run's own rays, set the bound of a closest-hit
+// launch, and divergence between the rays of a warp is what keeps the
+// kernel from it.  The tables stay in L2 at 66k tris (3.2 MiB); at 1M
+// tris the 45.8 MiB tri table shares the 50 MB L2 with the wavefront
+// and the shading's attribute rows, and the kernel does 1.4-2.2x less
+// work per millisecond (PERF.md, config 5).  Warp-coherent traversal, a
+// wide (4- or 8-ary) BVH, compressed nodes and FMA are later work.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>

@@ -28,6 +28,9 @@ from .bvh import preorder_indices
 from .intersect import moller_trumbore
 
 STACK = 32  # the kernel's per-thread stack (csrc/bvh_traverse.cu kStack)
+# The kernel indexes tris, boxes and rays with 32-bit ints as 3*i + k
+# (float4 rows; 3 floats per ray): the most rows of each it can address.
+MAX_ROWS = (2**31 - 1) // 3
 
 # Kernel launches since the last reset: all of them, and the any-hit ones.
 launches = 0
@@ -124,6 +127,24 @@ def _library():
     return _lib
 
 
+# (data_ptr, version, tri rows) of leaf tables already checked.
+_checked_leaves: set = set()
+
+
+def _check_leaf_ranges(leaves, t_rows):
+    """Every leaf range of ``leaves`` lies in [0, t_rows).  Checked once
+    per table (one device sync), then remembered until the table
+    changes."""
+    key = (leaves.data_ptr(), leaves._version, t_rows)
+    if key in _checked_leaves:
+        return
+    lo = leaves[:, 0::2]
+    hi = leaves[:, 1::2]
+    if bool(((lo < 0) | (hi < lo) | (hi > t_rows)).any()):
+        raise ValueError(f"leaf table has a tri range outside [0, {t_rows})")
+    _checked_leaves.add(key)
+
+
 def _launch(tables, ray_o, ray_d, depth, exclude, t_max):
     global launches, any_hit_launches
     dev = ray_o.device
@@ -139,6 +160,10 @@ def _launch(tables, ray_o, ray_d, depth, exclude, t_max):
     _check("leaves", tables["leaves"], torch.int32, (nn, 4), dev)
     t_rows = tables["tris"].shape[0]
     _check("tris", tables["tris"], torch.float32, (t_rows, 12), dev)
+    if t_rows > MAX_ROWS or n > MAX_ROWS:
+        raise ValueError(f"{t_rows} tris and {n} rays: the kernel's 32-bit "
+                         f"indexing serves at most {MAX_ROWS} of each")
+    _check_leaf_ranges(tables["leaves"], t_rows)
     _check("ray_o", ray_o, torch.float32, (n, 3), dev)
     _check("ray_d", ray_d, torch.float32, (n, 3), dev)
     any_hit = exclude is not None

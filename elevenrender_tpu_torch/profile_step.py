@@ -1,9 +1,11 @@
 """Where the time of one render step goes, on the card.
 
-    python3 -m elevenrender_tpu_torch.profile_step [--res 1024] [--samples 4]
+    python3 -m elevenrender_tpu_torch.profile_step [--scene heightfield]
+        [--res 1024] [--samples 4]
 
-Renders the main path's scene (the 65,522-tri heightfield, native mode,
-5 bounces) and reports, over ``--samples`` progressive samples after one
+Renders one scene in native mode, 5 bounces: ``heightfield`` is the main
+path's (65,522 tris), ``config5`` the 999,698-tri textured heightfield
+with a point light.  It reports, over ``--samples`` progressive samples after one
 warm-up: the host-clock time per sample, and from ``torch.profiler`` the
 device time by kernel, grouped into the BVH traversal kernel, sorting,
 gathers/scatters and the rest, with the device's busy and idle share of
@@ -32,6 +34,8 @@ def _group(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scene", choices=("heightfield", "config5"),
+                    default="heightfield")
     ap.add_argument("--res", type=int, default=1024)
     ap.add_argument("--samples", type=int, default=4)
     ap.add_argument("--top", type=int, default=15)
@@ -44,9 +48,14 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from .render.renderer import Renderer
-    from .scene.demo import heightfield_scene
+    from .scene.demo import heightfield_scene, textured_heightfield_scene
 
-    _, config, ir = heightfield_scene(grid=182, res=args.res, compat=False)
+    if args.scene == "config5":
+        _, config, ir = textured_heightfield_scene(grid=708, res=args.res,
+                                                   compat=False)
+    else:
+        _, config, ir = heightfield_scene(grid=182, res=args.res,
+                                          compat=False)
     renderer = Renderer(config.replace(max_bounces=5), ir)
     renderer.step(1)
     torch.cuda.synchronize()
@@ -69,7 +78,8 @@ def main(argv=None) -> int:
     total_us = sum(e.device_time_total for e in events) / args.samples
     n_kernels = sum(e.count for e in events) / args.samples
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"{args.res}x{args.res}, 5 bounces, native: {wall_plain:.2f} "
+    print(f"scene {args.scene}: {ir['tris']['verts'].shape[0]} tris; "
+          f"{args.res}x{args.res}, 5 bounces, native: {wall_plain:.2f} "
           f"ms/sample unprofiled, {wall_prof:.2f} ms/sample profiled")
     if not events:
         print("the profiler recorded no device time: no breakdown")

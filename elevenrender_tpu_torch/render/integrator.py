@@ -7,7 +7,11 @@ lockstep; every branch of the reference megakernel is a lane mask.  Each
 bounce: a closest-hit trace of the path rays, the hit attributes and
 material row, Disney sample/eval/pdf, environment NEE with an any-hit
 shadow trace (native) or a nearest-hit self-test (compat), and the MIS
-accumulation.
+accumulation.  Hit data comes from the material table or from the
+texture atlas per map slot, with tangent-space normal mapping and the
+programmable albedo shaders.  In native mode with point lights, each
+bounce also picks one light per lane, and the environment and light
+shadow rays go through one any-hit launch of 2N rays.
 
 Both traversals of a bounce go through ``ops.traverse.traverse``: the
 CUDA kernel on the card, its plain version on the CPU.  Rays are sorted
@@ -15,9 +19,9 @@ once per bounce by hit point and sampled direction (and the native
 shadow rays by their own gate) so that neighbouring threads walk
 neighbouring rays; the sort changes no result beyond equal-t ties.
 
-Scope of this slice: native and compat modes, untextured scenes, no
-point lights, no programmable shaders, forward only.  The rest raises
-``NotImplementedError`` (see ``check_supported``).
+Forward only: the gradient slice (``record``/``trace_cache``, the custom
+``material_fetch`` backward) and ``sort_impl="counting"`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ from ..ops.camera import camera_ray
 from ..ops.disney import disney_eval, disney_pdf, disney_sample
 from ..ops.intersect import full_hit, gather_tri
 from ..ops.sort import sort_for_packets
-from ..ops.texture import reverse_spherical_mapping, spherical_mapping
+from ..ops.texture import (reverse_spherical_mapping, sample_filtered,
+                           sample_nearest, spherical_mapping)
+from . import shaders as shader_registry
 
 BEAUTY, DENOISE, NORMAL, TANGENT, BITANGENT = range(5)
 PASSES_COUNT = 5
@@ -42,18 +48,6 @@ _SCALAR_FIELDS = ("roughness", "metallic", "opacity", "transmission",
                   "clearcoat", "anisotropic", "eta", "specular",
                   "subsurface", "sheen", "clearcoat_gloss",
                   "specular_tint", "sheen_tint")
-
-
-def check_supported(config) -> None:
-    """Raise for what this slice of the port does not render yet."""
-    if any(config.tex_slots_used):
-        raise NotImplementedError(
-            "textured materials (config.tex_slots_used) are not ported yet")
-    if config.n_lights > 0:
-        raise NotImplementedError("point lights are not ported yet")
-    if config.use_shaders:
-        raise NotImplementedError(
-            "programmable shaders (config.use_shaders) are not ported yet")
 
 
 def init_state(config, device="cuda") -> dict:
@@ -148,37 +142,78 @@ def _trace(config, ir, ray_o, ray_d, mask=None, perm=None, exclude=None,
     return idx, t
 
 
-def _generate_hitdata(config, ir, hit) -> dict:
-    """Material constants at the hit (untextured), the ^2.2 quirk on
-    roughness and metallic, and the hit's frame."""
+def _generate_hitdata(config, ir, hit, ray_d) -> dict:
+    """Material constants or texture fetches per map slot, tangent-space
+    normal mapping, the ^2.2 quirk on roughness and metallic, the hit's
+    frame, and the albedo shaders on the mapped normal.  Slots that no
+    material binds (``config.tex_slots_used``) are skipped outright."""
     mats = ir["materials"]
+    atlas = ir["atlas"]
     table = torch.cat([mats["albedo"], mats["emission"]]
                       + [mats[s][:, None] for s in _SCALAR_FIELDS], dim=1)
     if table.requires_grad and config.material_fetch != "gather":
         raise NotImplementedError(
             f"material_fetch={config.material_fetch!r} defines a custom "
             "backward (gradient slice, not ported yet); use 'gather'")
-    row = table[hit["mat"]]
+    m = hit["mat"]
+    row = table[m]
     scalar = {s: row[..., 6 + i] for i, s in enumerate(_SCALAR_FIELDS)}
+    tex = mats["tex"][m]
+    tu, tv = hit["tu"], hit["tv"]
+    used = config.tex_slots_used
+
+    def fetch(slot):
+        tid = tex[..., slot]
+        val = sample_filtered(atlas, torch.clamp(tid, min=0), tu, tv,
+                              uniform_filter=config.tex_uniform_filter)
+        return tid >= 0, val
+
+    def tex_rgb(slot, fallback):
+        if not used[slot]:
+            return fallback
+        bound, val = fetch(slot)
+        return where3(bound, val, fallback)
+
+    def tex_x(slot, fallback):
+        if not used[slot]:
+            return fallback
+        bound, val = fetch(slot)
+        return torch.where(bound, val[..., 0], fallback)
+
     hd = {
-        "albedo": row[..., 0:3],
-        "emission": row[..., 3:6],
-        "roughness": torch.pow(scalar["roughness"], 2.2),
-        "metallic": torch.pow(scalar["metallic"], 2.2),
-        "opacity": scalar["opacity"],
-        "transmission": scalar["transmission"],
+        "albedo": tex_rgb(0, row[..., 0:3]),
+        "emission": tex_rgb(1, row[..., 3:6]),
+        "roughness": tex_x(2, scalar["roughness"]),
+        "metallic": tex_x(3, scalar["metallic"]),
+        "opacity": tex_x(5, scalar["opacity"]),
+        "transmission": tex_x(6, scalar["transmission"]),
         "normal": hit["normal"],
-        "clearcoatGloss": scalar["clearcoat_gloss"],
-        "specularTint": scalar["specular_tint"],
-        "sheenTint": scalar["sheen_tint"],
-        "gnormal": hit["gnormal"],
-        "tangent": hit["tangent"],
-        "bitangent": hit["bitangent"],
-        "position": hit["position"],
     }
+    if used[4]:
+        # Normal map: nearest fetch, tangent-space y flipped.
+        ntid = tex[..., 4]
+        local_n = sample_nearest(atlas, torch.clamp(ntid, min=0), tu,
+                                 tv) * 2.0 - 1.0
+        world_n = normalize(local_n[..., 0:1] * hit["tangent"]
+                            - local_n[..., 1:2] * hit["bitangent"]
+                            + local_n[..., 2:3] * hit["normal"])
+        hd["normal"] = where3(ntid >= 0, world_n, hit["normal"])
+    hd["roughness"] = torch.pow(hd["roughness"], 2.2)
+    hd["metallic"] = torch.pow(hd["metallic"], 2.2)
     for k in ("clearcoat", "anisotropic", "eta", "specular", "subsurface",
               "sheen"):
         hd[k] = scalar[k]
+    hd["clearcoatGloss"] = scalar["clearcoat_gloss"]
+    hd["specularTint"] = scalar["specular_tint"]
+    hd["sheenTint"] = scalar["sheen_tint"]
+    hd["gnormal"] = hit["gnormal"]
+    hd["tangent"] = hit["tangent"]
+    hd["bitangent"] = hit["bitangent"]
+    hd["position"] = hit["position"]
+    if config.use_shaders:
+        hd["albedo"] = shader_registry.apply_shaders(
+            mats["shader"][m], hd["albedo"], hit["position"], ray_d,
+            hd["normal"], hit["gnormal"], tu, tv)
     return hd
 
 
@@ -194,7 +229,6 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
     if record or trace_cache is not None:
         raise NotImplementedError(
             "record/trace_cache (gradient trace replay) are not ported yet")
-    check_supported(config)
     dev = rng.device
     x_res, y_res = config.x_res, config.y_res
     f32 = dict(dtype=torch.float32, device=dev)
@@ -224,6 +258,7 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
     use_sort = uses_sort(config, ir)
     perm = None  # bounce 0's camera rays are pixel-ordered: no sort
     inf_col = torch.full((npix,), float("inf"), **f32)
+    merge_lights = not config.compat and config.n_lights > 0
 
     n_bounces = max(config.max_bounces, 1)  # bounce 0 always runs
     for bounce in range(n_bounces):
@@ -245,7 +280,7 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
 
         tri = gather_tri(ir["tris"], torch.clamp(hit_idx, min=0))
         hit = full_hit(ray_o, ray_d, tri)
-        hd = _generate_hitdata(config, ir, hit)
+        hd = _generate_hitdata(config, ir, hit, ray_d)
 
         rng, r_op = rng_mod.next_float_masked(rng, alive)
         shade = alive & (r_op <= hd["opacity"])
@@ -294,6 +329,20 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
             # shadow rays, unless they get their own sort).
             bounce_perm = _sort(config, ir, hd["position"], wibrdf, alive)
 
+        if merge_lights:
+            # One light per lane, drawn after every other draw of the
+            # bounce.
+            rng, r_l = rng_mod.next_float_masked(rng, shade)
+            n_l = config.n_lights
+            li = torch.clamp(torch.trunc(r_l * n_l).to(torch.int64), 0,
+                             n_l - 1)
+            lpos = ir["lights"]["pos"][li]
+            lrad = ir["lights"]["rad"][li]
+            to_light = lpos - hd["position"]
+            ldist = torch.sqrt(torch.clamp(dot(to_light, to_light),
+                                           min=1e-12))
+            wi_l = to_light / ldist[..., None]
+
         if config.compat:
             # Reference parity: nearest hit plus the self-hit test; every
             # shading lane launches.
@@ -306,13 +355,33 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
             g_common = shade & (dot(wo, n) > 0.0) \
                 & (hd["transmission"] < 1.0)
             g_hdri = g_common & (dot(wihdri, n) > 0.0)
+            if merge_lights:
+                # The environment and light shadow rays as one any-hit
+                # launch of 2N rays: the light half starts 1e-3 along
+                # wi_l and stops 1e-3 short of the light; both halves
+                # exclude the source tri.
+                g_l = g_common & (dot(wi_l, n) > 0.0)
+                so = torch.cat([shadow_o, hd["position"] + wi_l * 1e-3])
+                sd = torch.cat([wihdri, wi_l])
+                gate = torch.cat([g_hdri, g_l])
+                excl = torch.cat([hit_idx, hit_idx])
+                t_max = torch.cat([inf_col, ldist - 1e-3])
+            else:
+                so, sd, gate, excl, t_max = (shadow_o, wihdri, g_hdri,
+                                             hit_idx, inf_col)
             if use_sort and config.shadow_sort:
-                perm_s = _sort(config, ir, shadow_o, wihdri, g_hdri)
+                perm_s = _sort(config, ir, so, sd, gate)
+            elif bounce_perm is not None and merge_lights:
+                order, inverse = bounce_perm
+                perm_s = (torch.cat([order, order + npix]),
+                          torch.cat([inverse, inverse + npix]))
             else:
                 perm_s = bounce_perm
-            s_idx, _ = _trace(config, ir, shadow_o, wihdri, mask=g_hdri,
-                              perm=perm_s, exclude=hit_idx, t_max=inf_col)
-            occluded = s_idx >= 0
+            s_idx, _ = _trace(config, ir, so, sd, mask=gate, perm=perm_s,
+                              exclude=excl, t_max=t_max)
+            occluded = s_idx[:npix] >= 0
+            if merge_lights:
+                l_occluded = s_idx[npix:] >= 0
         perm = bounce_perm
 
         f_nee = disney_eval(hd, wo, n, wihdri)
@@ -346,6 +415,14 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
         f_brdf = disney_eval(hd, wo, n, wibrdf)
 
         contrib = hd["emission"] + hdri_int
+        if merge_lights:
+            # Point-light NEE: the uniform 1/N pick cancels the N; delta
+            # lights take no MIS weight.
+            f_l = disney_eval(hd, wo, n, wi_l)
+            pl_c = (lrad / (ldist * ldist)[..., None]) * f_l \
+                * torch.abs(dot(wi_l, n))[..., None] * float(config.n_lights)
+            contrib = contrib + where3(shade & ~l_occluded, pl_c,
+                                       torch.zeros_like(pl_c))
         light = light + where3(shade, reduction * contrib, zeros3)
         throughput = f_brdf * torch.abs(dot(wibrdf, n))[..., None] / (
             brdf_pdf[..., None] if config.compat
@@ -369,6 +446,8 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
         if config.count_rays:
             launched = shade if config.compat else g_hdri
             rays = rays + launched.to(torch.float32).sum()
+            if merge_lights:
+                rays = rays + g_l.to(torch.float32).sum()
 
     light = torch.clamp(light, 0.0, config.clamp_radiance)
     ok = ~torch.isnan(light).any(dim=-1)

@@ -14,7 +14,7 @@ import numpy as np
 from ..convert import ir_to
 from ..core.device import resolve_device
 from .integrator import (BEAUTY, BITANGENT, DENOISE, NORMAL, TANGENT,
-                         check_supported, init_state, render_sample)
+                         init_state, render_sample)
 
 _PASS_NAMES = {"beauty": BEAUTY, "denoise": DENOISE, "normal": NORMAL,
                "tangent": TANGENT, "bitangent": BITANGENT}
@@ -30,7 +30,6 @@ class Renderer:
 
     def __init__(self, config, ir, device="cuda"):
         self.device = resolve_device(device)
-        check_supported(config)
         if config.denoise:
             raise NotImplementedError("config.denoise: the denoiser is not "
                                       "ported yet")

@@ -10,13 +10,15 @@ flattens a host ``Scene`` into:
             the packed [T, 40] attribute row the shading gather reads
   bvh       node_bmin/node_bmax [NN, 3], node_from/node_to [NN]
   kernel    the CUDA traversal's tables (ops/traverse.pack_tables)
-  materials the material SoA table
+  materials the material SoA table (texture ids per map slot, shader id)
+  atlas     every texture as [P, 4] texel rows plus off/w/h/ch/filter
+            (ops/texture.pack_atlas)
   env       img, cdf, rsum, alias_prob, alias_idx
   camera    position, rotation and the lens scalars
   lights    pos, rad
 
-The JAX package's 128-lane ``bvh_packed`` tables and its texture atlas
-are TPU layout and textured-slice data; they are not part of this IR.
+The JAX package's 128-lane ``bvh_packed`` tables are TPU layout and are
+not part of this IR.
 """
 
 from __future__ import annotations
@@ -30,14 +32,14 @@ from ..core.device import resolve_device
 from ..ops.bvh import build_bvh
 from ..ops.hdri import pack_hdri
 from ..ops.intersect import pack_tri_attributes
+from ..ops.texture import FILTER_NONE, pack_atlas
 from ..ops.traverse import pack_tables
+from ..render.shaders import registry_version
+from .material import MAP_SLOTS, Material
 
-MAP_SLOT_ORDER = ("albedo", "emission", "roughness", "metallic", "normal",
-                  "opacity", "transmission")
 MAT_SCALARS = ("opacity", "roughness", "metallic", "clearcoat_gloss",
                "clearcoat", "anisotropic", "eta", "transmission", "specular",
                "specular_tint", "sheen_tint", "subsurface", "sheen")
-FILTER_NONE = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,14 +95,13 @@ class RenderConfig:
 
 def materials_to_numpy(materials) -> dict:
     """Material list -> SoA table; index 0 is the implicit default."""
-    from .material import Material
     if not materials:
         materials = [Material.default()]
     M = len(materials)
     out = {
         "albedo": np.zeros((M, 3), np.float32),
         "emission": np.zeros((M, 3), np.float32),
-        "tex": np.full((M, len(MAP_SLOT_ORDER)), -1, np.int32),
+        "tex": np.full((M, len(MAP_SLOTS)), -1, np.int32),
         "shader": np.full((M,), -1, np.int32),
     }
     for s in MAT_SCALARS:
@@ -110,7 +111,7 @@ def materials_to_numpy(materials) -> dict:
         out["emission"][i] = m.emission
         for s in MAT_SCALARS:
             out[s][i] = getattr(m, s)
-        for j, slot in enumerate(MAP_SLOT_ORDER):
+        for j, slot in enumerate(MAP_SLOTS):
             out["tex"][i, j] = getattr(m, f"{slot}_texture_id")
         out["shader"][i] = m.albedo_shader_id
     return out
@@ -184,6 +185,7 @@ def build_ir(scene, config: RenderConfig | None = None,
                               bvh["node_from"], bvh["node_to"], verts[perm],
                               bvh["depth"]),
         "materials": materials,
+        "atlas": pack_atlas(scene.textures),
         "env": pack_hdri(scene.hdri,
                          alias_table=(True if config.env_sampler == "alias"
                                       else None)),
@@ -214,5 +216,6 @@ def build_ir(scene, config: RenderConfig | None = None,
         tex_uniform_filter=(filters[0] if len(filters) == 1
                             else (FILTER_NONE if not filters else -1)),
         use_shaders=bool((materials["shader"] >= 0).any()),
+        shader_version=registry_version(),
     )
     return config, ir_to_torch(ir_np, dev)

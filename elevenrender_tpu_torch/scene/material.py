@@ -12,6 +12,11 @@ import math
 
 import numpy as np
 
+# The seven texture-map slots, in the order Scene.pair_textures walks
+# them and the IR's material "tex" columns hold them.
+MAP_SLOTS = ("albedo", "emission", "roughness", "metallic", "normal",
+             "opacity", "transmission")
+
 
 @dataclasses.dataclass
 class Material:

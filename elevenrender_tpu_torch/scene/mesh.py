@@ -20,3 +20,7 @@ class MeshData:
     tangents: np.ndarray       # [T, 3, 3] float32
     tangent_signs: np.ndarray  # [T] float32
     mat_names: list            # [T] str, "" when the face has no material
+
+    @property
+    def tri_count(self) -> int:
+        return self.verts.shape[0]

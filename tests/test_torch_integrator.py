@@ -13,6 +13,20 @@
     fuses multiply-adds, the port does not), and then the rest of that
     path differs.
 (c) The port's own scene build renders what the converted JAX IR does.
+(d) Config 5 in miniature, ``textured_heightfield_scene(grid=24, res=16)``
+    (1,058 tris: a bilinear checker albedo map, a nearest normal map, the
+    sky and a point light), against JAX with ``trace_mode="pallas_stream"``
+    (the stream-residency kernel in interpret mode), native with the
+    merged 2N-ray shadow launch and compat, at (b)'s checks.
+(e) The featured goldens (textures, normal map, opacity, bokeh, and a
+    point light in native mode; 4 tris, brute force) and a material with
+    an albedo shader, at test_golden.py's rtol 1e-5 / atol 1e-6: on every
+    pixel against the JAX package run op by op (``jax.disable_jit``), on
+    >= 99% of pixels against the goldens and the jitted JAX program, all
+    others within rtol 1e-4 / atol 1e-5.  The jitted program differs from
+    its own op-by-op run: XLA contracts a*b+c into FMA, and on one of the
+    256 pixels of the featured scene that moves the colour by up to 7e-5
+    relative; the port rounds each op as the op-by-op run does.
 """
 
 import dataclasses
@@ -21,16 +35,21 @@ import os
 import numpy as np
 import jax
 import pytest
+import torch
 
 from elevenrender_tpu.render.integrator import init_state as jax_init_state
+from elevenrender_tpu.render import shaders as jax_shaders
 from elevenrender_tpu.render.integrator import render_sample as jax_render
 from elevenrender_tpu_torch.convert import ir_from_numpy
 from elevenrender_tpu_torch.ops import traverse as tt
 from elevenrender_tpu_torch.render import integrator as ti
+from elevenrender_tpu_torch.render import shaders as t_shaders
 from elevenrender_tpu_torch.render.renderer import Renderer
 from elevenrender_tpu_torch.scene import demo
 
-from scenes import cornell_scene, heightfield_scene
+from scenes import (cornell_scene, heightfield_scene,
+                    textured_heightfield_scene)
+from test_golden import featured_scene
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -61,11 +80,17 @@ def _heightfield(compat):
     return config.replace(trace_mode="pallas", max_bounces=5), ir
 
 
-@pytest.fixture(scope="module", params=["native", "compat"])
-def heightfield_pair(request):
-    compat = request.param == "compat"
-    n_samples = 1 if compat else 2
-    config, ir = _heightfield(compat)
+def _textured(compat):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ELEVENRT_NATIVE", "0")
+        _, config, ir = textured_heightfield_scene(grid=24, res=16,
+                                                   compat=compat)
+    return config.replace(trace_mode="pallas_stream", max_bounces=5), ir
+
+
+def _run_pair(config, ir, n_samples):
+    """n_samples progressive samples through JAX and through the port on
+    the CPU; returns (JAX state, port state, port config) as numpy."""
     state = jax_init_state(config)
     step = jax.jit(jax_render, static_argnums=0)
     for _ in range(n_samples):
@@ -82,12 +107,51 @@ def heightfield_pair(request):
     return want, got, cfg
 
 
+@pytest.fixture(scope="module", params=["native", "compat"])
+def heightfield_pair(request):
+    compat = request.param == "compat"
+    return _run_pair(*_heightfield(compat), 1 if compat else 2)
+
+
+@pytest.fixture(scope="module", params=["native", "compat"])
+def textured_pair(request):
+    compat = request.param == "compat"
+    return _run_pair(*_textured(compat), 1 if compat else 2)
+
+
 def _close_frac(a, b, rtol=1e-4, atol=1e-5):
     return np.isclose(a, b, rtol=rtol, atol=atol).all(axis=-1).mean()
 
 
 def test_heightfield_matches_jax_pallas(heightfield_pair):
-    want, got, _ = heightfield_pair
+    _check_pair(heightfield_pair)
+
+
+def test_textured_heightfield_matches_jax_pallas_stream(textured_pair):
+    want, got, cfg = textured_pair
+    assert cfg.n_lights == 1 and cfg.tex_uniform_filter == -1
+    assert cfg.tex_slots_used == (True, False, False, False, True, False,
+                                  False)
+    _check_pair(textured_pair)
+
+
+def test_merged_shadow_launch_is_order_free():
+    """The occlusion flags of the 2N-ray launch do not depend on the
+    order its rays go in: the bounce permutation doubled over the two
+    halves (``shadow_sort=False``) and the gate-keyed sort of the 2N
+    rays (the default) render the same image."""
+    config, ir = _textured(False)
+    cfg, tir = _convert(config, ir)
+    images = []
+    for kw in ({}, {"shadow_sort": False}):
+        r = Renderer(cfg.replace(**kw), tir, device="cpu")
+        r.step(1)
+        images.append(r.get_pass("beauty"))
+    np.testing.assert_array_equal(images[0], images[1])
+
+
+def _check_pair(pair):
+    want, got, _ = pair
     np.testing.assert_array_equal(got["samples"], want["samples"])
     assert (got["rng"] == want["rng"].astype(np.int64)).mean() >= 0.99
     for pid in (ti.BEAUTY, ti.NORMAL):
@@ -127,10 +191,26 @@ def test_renderer_passes_and_unported_features():
                                   r.get_pass("beauty"))
     with pytest.raises(NotImplementedError):
         r.get_pass("denoise")
-    for bad in (dict(denoise=True), dict(n_lights=1), dict(use_shaders=True),
-                dict(tex_slots_used=(True,) + (False,) * 6)):
-        with pytest.raises(NotImplementedError):
-            Renderer(cfg.replace(**bad), ir, device="cpu")
+    with pytest.raises(NotImplementedError):
+        Renderer(cfg.replace(denoise=True), ir, device="cpu")
+    # Textures, point lights and shaders render.  No material binds a
+    # texture or a shader here, so enabling those paths changes no value
+    # beyond an ulp (torch's CPU pow may round a strided view and a
+    # contiguous copy of the same numbers differently); a light draws
+    # one more number per bounce, so its image differs.
+    for on in (dict(n_lights=1), dict(use_shaders=True),
+               dict(tex_slots_used=(True,) * 7, tex_uniform_filter=-1)):
+        r2 = Renderer(cfg.replace(**on), ir, device="cpu")
+        r2.step(1)
+        assert r2.get_render_info() == {"samples": 1}
+        img = r2.get_pass("beauty")
+        assert np.isfinite(img).all()
+        if "n_lights" not in on:
+            np.testing.assert_allclose(img, r.get_pass("beauty"), rtol=1e-6,
+                                       atol=1e-7)
+    with pytest.raises(NotImplementedError):
+        Renderer(cfg.replace(sort_impl="counting", trace_mode="pallas"), ir,
+                 device="cpu").step(1)
     # The gradient slice: trace recording and the custom material VJP.
     state = ti.init_state(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
@@ -144,3 +224,87 @@ def test_renderer_passes_and_unported_features():
                          device="cpu")
     ti.render_sample(cfg.replace(material_fetch="gather"), ir_g, state,
                      device="cpu")
+
+
+@pytest.mark.parametrize("name,compat", [("featured_16x16_compat", True),
+                                         ("featured_16x16_native", False)])
+def test_featured_matches_golden(name, compat):
+    """Textures, normal map, opacity and bokeh (and the point light in
+    native mode) on the JAX-built scene, against the golden and against
+    the JAX package run op by op."""
+    config, ir = featured_scene(res=16, compat=compat, spp=3)
+    cfg, tir = _convert(config, ir)
+    assert any(cfg.tex_slots_used) and cfg.n_lights == (0 if compat else 1)
+    r = Renderer(cfg, tir, device="cpu")
+    r.step(3)
+    img = r.get_pass("beauty").reshape(16, 16, 4)
+    ref = np.load(os.path.join(GOLDEN_DIR, f"{name}.npy"))
+    _assert_close_but_fma(img, ref)
+    state = jax_init_state(config)
+    with jax.disable_jit():
+        for _ in range(3):
+            state = jax_render(config, ir, state)
+    np.testing.assert_allclose(
+        img, np.asarray(state["passes"][ti.BEAUTY]).reshape(16, 16, 4),
+        rtol=1e-5, atol=1e-6)
+
+
+def _assert_close_but_fma(got, want):
+    """Within rtol 1e-5 / atol 1e-6 on >= 99% of pixels, and within
+    rtol 1e-4 / atol 1e-5 on all (see (e) above)."""
+    got, want = got[..., :3], want[..., :3]
+    assert _close_frac(got, want, rtol=1e-5, atol=1e-6) >= 0.99
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_named_shaders_equal_jax():
+    rng = np.random.default_rng(21)
+    args = [rng.normal(size=(64, 3)).astype(np.float32) for _ in range(4)]
+    args += [rng.uniform(-1, 2, 64).astype(np.float32) for _ in range(2)]
+    assert t_shaders.NAMED_SHADERS.keys() == jax_shaders.NAMED_SHADERS.keys()
+    for name, fn in t_shaders.NAMED_SHADERS.items():
+        want = np.asarray(jax_shaders.NAMED_SHADERS[name](
+            *map(jax.numpy.asarray, args)))
+        got = fn(*map(torch.tensor, args)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=name)
+
+
+@pytest.fixture
+def checker_in_slot_1():
+    """The checker shader bound to slot 1 in both registries, and both
+    reset afterwards."""
+    v0 = t_shaders.registry_version()
+    jax_shaders.register_shader(1, jax_shaders.NAMED_SHADERS["checker"])
+    t_shaders.register_shader(1, t_shaders.NAMED_SHADERS["checker"])
+    assert t_shaders.registry_version() > v0
+    yield
+    jax_shaders.reset_shaders()
+    t_shaders.reset_shaders()
+
+
+def test_albedo_shader_matches_jax(checker_in_slot_1):
+    """The featured scene's ground takes its albedo from the checker
+    shader (slot 1), its canopy from the placeholder (slot 0); native,
+    2 samples, port against JAX."""
+    config, ir = featured_scene(res=16, compat=False, spp=2)
+    ir = dict(ir)
+    ir["materials"] = dict(ir["materials"])
+    ir["materials"]["shader"] = jax.numpy.asarray(np.array([1, 0], np.int32))
+    config = config.replace(use_shaders=True)
+    state = jax_init_state(config)
+    step = jax.jit(jax_render, static_argnums=0)
+    for _ in range(2):
+        state = step(config, ir, state)
+    want = np.asarray(state["passes"])
+    cfg, tir = _convert(config, ir)
+    st = ti.init_state(cfg, device="cpu")
+    for _ in range(2):
+        st = ti.render_sample(cfg, tir, st, device="cpu")
+    got = st["passes"].numpy()
+    for pid in (ti.BEAUTY, ti.NORMAL, ti.DENOISE):
+        _assert_close_but_fma(got[pid], want[pid])
+    # The shader changed the image.
+    plain = Renderer(cfg.replace(use_shaders=False), tir, device="cpu")
+    plain.step(2)
+    assert not np.allclose(plain.get_pass("beauty"),
+                           got[ti.BEAUTY].reshape(-1))

@@ -60,17 +60,20 @@ import elevenrender_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 from elevenrender_tpu_torch.render.renderer import Renderer
-from elevenrender_tpu_torch.scene.demo import heightfield_scene
-_, config, ir = heightfield_scene(grid=10, res=8, device="cpu")
-r = Renderer(config, ir, device="cpu")
-r.step(1)
-img = r.get_pass("beauty").reshape(8, 8, 4)
-assert np.isfinite(img).all() and img[..., :3].mean() > 0.0
-print("rendered", float(img[..., :3].mean()))
+from elevenrender_tpu_torch.scene.demo import (heightfield_scene,
+                                               textured_heightfield_scene)
+for build in (heightfield_scene, textured_heightfield_scene):
+    _, config, ir = build(grid=10, res=8, device="cpu")
+    r = Renderer(config, ir, device="cpu")
+    r.step(1)
+    img = r.get_pass("beauty").reshape(8, 8, 4)
+    assert np.isfinite(img).all() and img[..., :3].mean() > 0.0
+    print("rendered", build.__name__, float(img[..., :3].mean()))
 """
     res = _run(code)
     assert res.returncode == 0, res.stderr
-    assert "rendered" in res.stdout
+    assert "rendered heightfield_scene" in res.stdout
+    assert "rendered textured_heightfield_scene" in res.stdout
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -19,7 +19,7 @@ from elevenrender_tpu_torch.scene import demo
 from elevenrender_tpu_torch.scene.hdri import HDRI
 from elevenrender_tpu_torch.scene.texture import Texture
 
-from scenes import heightfield_scene
+from scenes import heightfield_scene, textured_heightfield_scene
 from test_pallas import random_scene
 
 
@@ -62,11 +62,24 @@ def test_build_ir_equals_converted_jax_ir(monkeypatch):
     package's build of the same heightfield, carried across by
     ir_from_numpy; the JAX side uses its numpy BVH build."""
     monkeypatch.setenv("ELEVENRT_NATIVE", "0")
-    _, jcfg, jir = heightfield_scene(grid=24, res=16, compat=False)
+    _assert_same_build(heightfield_scene, demo.heightfield_scene)
+
+
+def test_textured_build_ir_equals_converted_jax_ir(monkeypatch):
+    """The same for config 5's scene in miniature: the atlas, the
+    material's texture ids and the point light come across too."""
+    monkeypatch.setenv("ELEVENRT_NATIVE", "0")
+    ir_p = _assert_same_build(textured_heightfield_scene,
+                              demo.textured_heightfield_scene)
+    assert ir_p["atlas"]["data"].shape == (64 * 64 + 32 * 32, 4)
+    assert ir_p["materials"]["tex"][0].tolist() == [0, -1, -1, -1, 1, -1, -1]
+
+
+def _assert_same_build(jax_build, port_build):
+    _, jcfg, jir = jax_build(grid=24, res=16, compat=False)
     cfg_c, ir_c = ir_from_numpy(dataclasses.asdict(jcfg),
                                 jax.tree.map(np.asarray, jir), device="cpu")
-    _, cfg_p, ir_p = demo.heightfield_scene(grid=24, res=16, compat=False,
-                                            device="cpu")
+    _, cfg_p, ir_p = port_build(grid=24, res=16, compat=False, device="cpu")
     for f in ("x_res", "y_res", "bvh_depth", "bvh_max_leaf", "bokeh",
               "n_lights", "tex_slots_used", "tex_uniform_filter",
               "use_shaders", "compat", "sample_target"):
@@ -78,6 +91,7 @@ def test_build_ir_equals_converted_jax_ir(monkeypatch):
             np.testing.assert_array_equal(ir_p[grp][k].numpy(),
                                           ir_c[grp][k].numpy(),
                                           err_msg=f"{grp}.{k}")
+    return ir_p
 
 
 def test_render_config_has_the_jax_fields_and_defaults():

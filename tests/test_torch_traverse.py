@@ -1,6 +1,9 @@
 """PyTorch port, traversal: the plain version of the CUDA kernel (what
 ``traverse`` runs on a CPU tensor) against the JAX package's Pallas
-kernel, run in interpret mode on the same numpy rays and tables.
+kernel, run in interpret mode on the same numpy rays and tables: in VMEM
+residency, and in stream residency (``stream=True``, the tri table in
+HBM with one DMA per leaf-parent visit), whose hits the same kernel
+serves on the card.
 
 Ids must be equal except on equal-t ties (a per-ray walk and the TPU's
 4096-ray packets may visit tied tris in another order).  t agrees to
@@ -26,7 +29,7 @@ from elevenrender_tpu.ops.bvh_pallas import (pack_bvh_for_pallas,
 from elevenrender_tpu_torch.convert import ir_from_numpy
 from elevenrender_tpu_torch.ops import traverse as tt
 
-from scenes import heightfield_scene
+from scenes import heightfield_scene, textured_heightfield_scene
 from test_pallas import random_scene
 
 
@@ -43,8 +46,15 @@ def _random_case():
                 o=np.asarray(o), d=np.asarray(d))
 
 
-def _heightfield_case():
-    _, config, ir = heightfield_scene(grid=24, res=16, compat=False)
+def _heightfield_case(textured=False):
+    if textured:
+        # Config 5's scene in miniature, with a tree two levels deeper
+        # than the automatic depth (6): smaller leaves, more DMA bursts.
+        _, config, ir = textured_heightfield_scene(grid=24, res=16,
+                                                   bvh_depth=8)
+        assert config.bvh_depth == 8
+    else:
+        _, config, ir = heightfield_scene(grid=24, res=16, compat=False)
     cfg, tir = ir_from_numpy(dataclasses.asdict(config),
                              jax.tree.map(np.asarray, ir), device="cpu")
     rng = np.random.default_rng(3)
@@ -63,15 +73,27 @@ def _heightfield_case():
 
 
 _CASES = {"random300": _random_case, "heightfield24": _heightfield_case}
+_STREAM_CASES = {"random300": _random_case,
+                 "textured24_depth8": lambda: _heightfield_case(True)}
+
+
+def _jax_case(c, stream):
+    c["stream"] = stream
+    c["jax"] = traverse_pallas(*c["packed"], jnp.asarray(c["o"]),
+                               jnp.asarray(c["d"]), depth=c["depth"],
+                               max_leaf=c["max_leaf"], interpret=True,
+                               stream=stream)
+    return c
 
 
 @pytest.fixture(scope="module", params=sorted(_CASES))
 def case(request):
-    c = _CASES[request.param]()
-    c["jax"] = traverse_pallas(*c["packed"], jnp.asarray(c["o"]),
-                               jnp.asarray(c["d"]), depth=c["depth"],
-                               max_leaf=c["max_leaf"], interpret=True)
-    return c
+    return _jax_case(_CASES[request.param](), stream=False)
+
+
+@pytest.fixture(scope="module", params=sorted(_STREAM_CASES))
+def stream_case(request):
+    return _jax_case(_STREAM_CASES[request.param](), stream=True)
 
 
 def _tri_t(tables, ids, o, d):
@@ -82,6 +104,23 @@ def _tri_t(tables, ids, o, d):
 
 
 def test_closest_hit_matches_jax_pallas(case):
+    _check_closest(case)
+
+
+def test_stream_closest_hit_matches_jax_pallas(stream_case):
+    _check_closest(stream_case)
+
+
+@pytest.mark.parametrize("t_max_kind", ["inf", "mixed"])
+def test_any_hit_flag_matches_jax_pallas(case, t_max_kind):
+    _check_any_hit(case, t_max_kind)
+
+
+def test_stream_any_hit_flag_matches_jax_pallas(stream_case):
+    _check_any_hit(stream_case, "mixed")
+
+
+def _check_closest(case):
     ji, jt = (np.asarray(a) for a in case["jax"])
     ti, tt_ = tt.traverse_plain(case["tables"], torch.tensor(case["o"]),
                                 torch.tensor(case["d"]), case["depth"])
@@ -99,8 +138,7 @@ def test_closest_hit_matches_jax_pallas(case):
     np.testing.assert_allclose(tt_[hit], jt[hit], rtol=2e-6)
 
 
-@pytest.mark.parametrize("t_max_kind", ["inf", "mixed"])
-def test_any_hit_flag_matches_jax_pallas(case, t_max_kind):
+def _check_any_hit(case, t_max_kind):
     n = case["o"].shape[0]
     rng = np.random.default_rng(5)
     closest = np.asarray(case["jax"][0]).astype(np.int32)
@@ -115,6 +153,7 @@ def test_any_hit_flag_matches_jax_pallas(case, t_max_kind):
     ji, _ = traverse_pallas(*case["packed"], jnp.asarray(case["o"]),
                             jnp.asarray(case["d"]), depth=case["depth"],
                             max_leaf=case["max_leaf"], interpret=True,
+                            stream=case["stream"],
                             exclude=jnp.asarray(exclude),
                             t_max=jnp.asarray(t_max))
     ti, tt_ = tt.traverse_plain(case["tables"], torch.tensor(case["o"]),
@@ -164,3 +203,18 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tt.traverse({}, torch.zeros((4, 3)), torch.zeros((4, 3)), 3,
                     exclude=torch.zeros(4, dtype=torch.int32))
+
+
+def test_wrapper_refuses_tables_it_cannot_serve(case, monkeypatch):
+    """The launch path checks the tables before it loads the kernel: a
+    leaf range outside the tri table, or more tris or rays than the
+    kernel's 32-bit indexing addresses, raise instead of truncating."""
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    bad = dict(case["tables"])
+    bad["leaves"] = bad["leaves"].clone()
+    bad["leaves"][bad["leaves"][:, 3].argmax(), 3] += 1
+    with pytest.raises(ValueError, match="leaf table"):
+        tt._launch(bad, o, d, case["depth"], None, None)
+    monkeypatch.setattr(tt, "MAX_ROWS", o.shape[0] - 1)
+    with pytest.raises(ValueError, match="32-bit"):
+        tt._launch(case["tables"], o, d, case["depth"], None, None)
