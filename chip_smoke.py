@@ -28,7 +28,25 @@ result line is printed):
  9. a small textured, lit heightfield at 64x64, one sample, card against
     CPU;
 10. at config 5's recorded shapes: the kernel against its plain version,
-    with its times and bound, as in phase 6.
+    with its times and bound, as in phase 6;
+11. the kernel's variants (order near/sign x leaf_aabb 0/1/2, the
+    noscan/skip probes, count_steps) against the plain version under the
+    same flags, at 65,522 and at 999,698 tris, on 65,536 camera rays,
+    65,536 random rays and the recorded bounce-1 and shadow launches,
+    closest-hit and any-hit: ids equal, t bit-equal, the four per-ray
+    counters equal; leaf_aabb is a pure cull; sign gives near's hits up
+    to equal-t ties;
+12. the variants timed at both paths' recorded shapes beside the default
+    kernel, their mean counters per ray, and each bound from the
+    kernel's own counters;
+13. the gradient path at 64x64, 5 bounces, 4 samples, card against CPU,
+    on the untextured and the textured, lit scene: loss and every
+    material gradient leaf; a replayed pass 2 equals a re-traced one
+    exactly and launches no traversal;
+14. the gradient path at full width: fwd_bwd_step_accum at 1024x1024, 5
+    bounces, 8 samples on the 65,522-tri scene (pass 1 records, pass 2
+    replays), its time, rays/s and peak memory; then one sample under
+    each other (order, leaf_aabb) variant: the same loss.
 The last two lines are one JSON object with the kernels' numbers and one
 with the result: {"ok": true, "device": {...}}.
 """
@@ -48,6 +66,7 @@ HBM_RATE = 3.35e12
 # and per triangle test 46 arithmetic ops and 9 compares.
 OPS_PER_VISIT = 50
 OPS_PER_TEST = 55
+OPS_PER_GROUP_BOX = 25  # one slab test (leaf_aabb 1 and 2)
 CONFIG5_TRIS = 999698
 
 
@@ -67,6 +86,8 @@ def main():
     from elevenrender_tpu_torch.convert import ir_to
     from elevenrender_tpu_torch.ops import traverse as tr
     from elevenrender_tpu_torch.ops.camera import camera_ray
+    from elevenrender_tpu_torch.render import grad as grad_mod
+    from elevenrender_tpu_torch.render import integrator
     from elevenrender_tpu_torch.render.renderer import Renderer
     from elevenrender_tpu_torch.scene.demo import (heightfield_scene,
                                                    textured_heightfield_scene)
@@ -167,14 +188,19 @@ def main():
         rnd_d /= np.linalg.norm(rnd_d, axis=-1, keepdims=True)
         rnd_o = torch.tensor(rnd_o, device=dev)
         rnd_d = torch.tensor(rnd_d, device=dev)
-        check(tables, depth, f"{label} camera rays", cam_o.contiguous(),
-              cam_d.contiguous())
+        cam_o, cam_d = cam_o.contiguous(), cam_d.contiguous()
+        cam_closest = check(tables, depth, f"{label} camera rays", cam_o,
+                            cam_d)
         closest = check(tables, depth, f"{label} random rays", rnd_o, rnd_d)
         t_max = torch.tensor(np.where(gen.uniform(size=nr) < 0.5, np.inf,
                                       gen.uniform(0.05, 4.0, nr)
                                       ).astype(np.float32), device=dev)
         check(tables, depth, f"{label} random rays", rnd_o, rnd_d,
               closest.to(torch.int32), t_max)
+        return {"camera rays": (cam_o, cam_d, cam_closest.to(torch.int32),
+                                t_max),
+                "random rays": (rnd_o, rnd_d, closest.to(torch.int32),
+                                t_max)}
 
     def drive(label, cfg, ir, n_timed):
         """Renderer.step at full width: 1 warm-up sample, then n_timed
@@ -228,6 +254,44 @@ def main():
             fail(f"{label}: card and CPU renders agree on only "
                  f"{close * 100:.2f}% of pixels")
 
+    def time_kernel(tables, depth, o, d, ex, tm, reps=20, **variant):
+        """Median of ``reps`` launches, each between two CUDA events."""
+        for _ in range(3):
+            tr._launch(tables, o, d, depth, ex, tm, **variant)
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            tr._launch(tables, o, d, depth, ex, tm, **variant)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    def bound_of(tables, counts, any_hit, leaf_aabb=0):
+        """The least time the card could take for one launch, from the
+        kernel's per-ray counters [N, 4]: fp32 operations (visits, tri
+        tests and, with leaf_aabb, at most one box test per group of 8
+        or two per group with leaf_aabb=2) over the fp32 peak, or every
+        table the variant reads plus rays in and results out over the
+        memory rate."""
+        n = counts.shape[0]
+        visits, _, groups, tests = (int(c) for c in counts.sum(dim=0))
+        ops = (visits * OPS_PER_VISIT + tests * OPS_PER_TEST
+               + groups * leaf_aabb * OPS_PER_GROUP_BOX)
+        read = ["boxes", "leaves", "tris"]
+        if leaf_aabb:
+            read.append({1: "groups8", 2: "groups4"}[leaf_aabb])
+        nbytes = (sum(tables[k].numel() * tables[k].element_size()
+                      for k in read)
+                  + n * (24 + 8) + (n * 8 if any_hit else 0))
+        ops_ms = ops / FP32_PEAK * 1e3
+        bytes_ms = nbytes / HBM_RATE * 1e3
+        return dict(bound_ms=max(ops_ms, bytes_ms),
+                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                    visits=visits, tests=tests, ops=ops, bytes=nbytes)
+
     def timing_at_recorded_shapes(label, cfg, ir, depth):
         """Records the first four launches of one sample (bounce 0 and 1,
         closest then any-hit), then times the kernel on the closest-hit
@@ -238,12 +302,12 @@ def main():
         calls = []
         launch = tr.traverse
 
-        def record(tables_, o, d, depth_, exclude=None, t_max=None):
+        def record(tables_, o, d, depth_, exclude=None, t_max=None, **kw):
             if len(calls) < 4:
                 calls.append((o.clone(), d.clone(),
                               None if exclude is None else exclude.clone(),
                               None if t_max is None else t_max.clone()))
-            return launch(tables_, o, d, depth_, exclude, t_max)
+            return launch(tables_, o, d, depth_, exclude, t_max, **kw)
 
         tr.traverse = record
         try:
@@ -252,30 +316,16 @@ def main():
             tr.traverse = launch
         shapes = {"closest_b0": calls[0], "closest_b1": calls[2],
                   "any_hit_b1": calls[3]}
-        table_bytes = sum(t.numel() * t.element_size()
-                          for t in tables.values())
+        table_bytes = sum(tables[k].numel() * tables[k].element_size()
+                          for k in ("boxes", "leaves", "tris"))
         print(f"[timing] {label}: kernel tables {table_bytes / 2**20:.1f} "
               f"MiB (tris {tables['tris'].numel() * 4 / 2**20:.1f} MiB)")
 
-        def time_kernel(o, d, ex, tm, reps=20):
-            for _ in range(3):
-                tr._launch(tables, o, d, depth, ex, tm)
-            times = []
-            for _ in range(reps):
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                tr._launch(tables, o, d, depth, ex, tm)
-                b.record()
-                b.synchronize()
-                times.append(a.elapsed_time(b))
-            return float(np.median(times))
-
         timing = {}
         for key, (o, d, ex, tm) in shapes.items():
-            ms = time_kernel(o, d, ex, tm)
-            pi, pt, cnt = tr.traverse_plain(tables, o, d, depth, ex, tm,
-                                            counters=True)
+            ms = time_kernel(tables, depth, o, d, ex, tm)
+            pi, pt, p_cnt = tr.traverse_plain(tables, o, d, depth, ex, tm,
+                                              count_steps=True)
             check(tables, depth, f"{label} {key}", o, d, ex, tm,
                   plain=(pi, pt))
             torch.cuda.synchronize()
@@ -283,25 +333,307 @@ def main():
             tr.traverse_plain(tables, o, d, depth, ex, tm)
             torch.cuda.synchronize()
             plain_ms = (time.time() - t0) * 1e3
-            visits = int(cnt["visits"].sum())
-            tests = int(cnt["tests"].sum())
+            # The bound's work counts are the kernel's own (count_steps).
+            _, _, k_cnt = tr.traverse(tables, o, d, depth, ex, tm,
+                                      count_steps=True)
+            if not torch.equal(k_cnt, p_cnt):
+                fail(f"{label} {key}: the kernel's counters differ from the "
+                     f"plain version's on "
+                     f"{int((k_cnt != p_cnt).any(dim=1).sum())} rays")
+            timing[key] = dict(ms=ms, plain_ms=plain_ms,
+                               **bound_of(tables, k_cnt, ex is not None))
+            b = timing[key]
             n = o.shape[0]
-            ops = visits * OPS_PER_VISIT + tests * OPS_PER_TEST
-            nbytes = (table_bytes + n * (24 + 8)
-                      + (n * 8 if ex is not None else 0))
-            ops_ms = ops / FP32_PEAK * 1e3
-            bytes_ms = nbytes / HBM_RATE * 1e3
-            bound = max(ops_ms, bytes_ms)
-            timing[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                               bound_by="operations" if ops_ms >= bytes_ms
-                               else "bytes")
             print(f"[timing] {label} {key}: {n} rays, kernel {ms:.3f} "
-                  f"ms/launch, plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
-                  f"({timing[key]['bound_by']}: {visits / n:.1f} visits "
-                  f"and {tests / n:.1f} tri tests per ray, {ops:.4g} ops, "
-                  f"{nbytes / 2**20:.1f} MiB; ops {ops_ms:.4f} ms, bytes "
-                  f"{bytes_ms:.4f} ms), {bound / ms * 100:.1f}% of bound")
-        return timing
+                  f"ms/launch, plain {plain_ms:.1f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}, from the "
+                  f"kernel's counters, equal to the plain version's: "
+                  f"{b['visits'] / n:.1f} visits and {b['tests'] / n:.1f} "
+                  f"tri tests per ray, {b['ops']:.4g} ops, "
+                  f"{b['bytes'] / 2**20:.1f} MiB), "
+                  f"{b['bound_ms'] / ms * 100:.1f}% of bound")
+        return timing, shapes
+
+    RENDER_VARIANTS = [(o_, a_) for o_ in tr.ORDERS for a_ in (0, 1, 2)]
+
+    def check_variants(label, tables, depth, rays, recorded):
+        """Every variant against the plain version under the same flags:
+        ids equal, t bit-equal (so the any-hit flags too), the four
+        counters equal on every ray.  leaf_aabb 1/2 must give exactly
+        leaf_aabb 0's ids and t; order="sign" gives order="near"'s up
+        to equal-t ties, which are counted.  Returns, by variant at the
+        recorded shapes, the plain version's time and the largest
+        |t - t_plain| seen there (0 unless the check above is loosened)."""
+        sets = []
+        for name, (o, d, closest, t_max) in rays.items():
+            sets.append((name, "closest", o, d, None, None))
+            sets.append((name, "any-hit", o, d, closest, t_max))
+        sets.append(("recorded bounce 1", "closest",
+                     *recorded["closest_b1"]))
+        sets.append(("recorded shadow", "any-hit", *recorded["any_hit_b1"]))
+        plain_ms = {}
+        ties = 0
+        checked = 0
+        for name, mode, o, d, ex, tm in sets:
+            base = {}
+            for order, leaf_aabb, leaf_mode in (
+                    [(o_, a_, "full") for o_, a_ in RENDER_VARIANTS]
+                    + [(o_, 0, m_) for o_ in tr.ORDERS
+                       for m_ in ("noscan", "skip")]):
+                flags = dict(order=order, leaf_aabb=leaf_aabb,
+                             leaf_mode=leaf_mode)
+                what = (f"{label} {name} {mode} order={order} "
+                        f"leaf_aabb={leaf_aabb} leaf_mode={leaf_mode}")
+                ki, kt, kc = tr.traverse(tables, o, d, depth, ex, tm,
+                                         count_steps=True, **flags)
+                ki2, kt2 = tr.traverse(tables, o, d, depth, ex, tm, **flags)
+                torch.cuda.synchronize()
+                ta = time.time()
+                pi, pt, pc = tr.traverse_plain(tables, o, d, depth, ex, tm,
+                                               count_steps=True, **flags)
+                torch.cuda.synchronize()
+                if name.startswith("recorded"):
+                    took = (time.time() - ta) * 1e3
+                    # inf - inf on a common miss is no error.
+                    gap = torch.nan_to_num(kt - pt, nan=0.0).abs().max()
+                    plain_ms[(order, leaf_aabb, leaf_mode, mode)] = (
+                        took, float(gap))
+                if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
+                    fail(f"{what}: kernel and plain version differ on "
+                         f"{int(((ki != pi) | (kt != pt)).sum())} rays")
+                if not torch.equal(kc, pc):
+                    fail(f"{what}: counters differ on "
+                         f"{int((kc != pc).any(dim=1).sum())} rays")
+                if not (torch.equal(ki, ki2) and torch.equal(kt, kt2)):
+                    fail(f"{what}: count_steps changed the result")
+                checked += 1
+                if leaf_mode != "full":
+                    if bool((ki >= 0).any()) or int(kc[:, 3].sum()):
+                        fail(f"{what}: a probe found a hit or tested a tri")
+                    continue
+                if leaf_aabb == 0:
+                    base[order] = (ki, kt, kc)
+                    continue
+                bi, bt, bc = base[order]
+                if not (torch.equal(ki, bi) and torch.equal(kt, bt)):
+                    fail(f"{what}: not the ids and t of leaf_aabb=0")
+                if int(kc[:, 3].sum()) > int(bc[:, 3].sum()):
+                    fail(f"{what}: more tri tests than leaf_aabb=0")
+            ni, nt, _ = base["near"]
+            si, st, _ = base["sign"]
+            if not torch.equal(nt, st):
+                fail(f"{label} {name} {mode}: order=sign changed t")
+            if mode == "closest":
+                diff = (ni != si).nonzero()[:, 0]
+                if diff.numel():
+                    # Same t from another tri: an equal-t tie.
+                    _, t_alt = tr._mt(tables["tris"][si[diff].long()],
+                                      o[diff], d[diff])
+                    if not torch.equal(t_alt, nt[diff]):
+                        fail(f"{label} {name}: order=sign differs from "
+                             f"near beyond equal-t ties")
+                    ties += int(diff.numel())
+        print(f"[variants] {label}: {checked} launches of "
+              f"{len(RENDER_VARIANTS)} (order, leaf_aabb) variants and 4 "
+              f"probes, each with and without count_steps, on {len(sets)} "
+              f"ray sets: ids equal, t bit-equal, counters equal to the "
+              f"plain version on every ray; leaf_aabb 1/2 give leaf_aabb "
+              f"0's ids and t exactly; order=sign gives order=near's t "
+              f"exactly and its ids but for {ties} equal-t ties")
+        return plain_ms
+
+    def time_variants(label, tables, depth, recorded, plain_ms):
+        """Each variant's time per launch at the path's recorded bounce-1
+        and shadow launches beside the default's, its mean counters per
+        ray (from its own count_steps launch) and its bound."""
+        out = {}
+        variants = ([("near", 0, "full", False), ("near", 0, "full", True)]
+                    + [(o_, a_, "full", False) for o_, a_ in RENDER_VARIANTS
+                       if (o_, a_) != ("near", 0)]
+                    + [("near", 0, "noscan", False),
+                       ("near", 0, "skip", False)])
+        for shape, key in (("closest", "closest_b1"),
+                           ("any-hit", "any_hit_b1")):
+            o, d, ex, tm = recorded[key]
+            default_ms = None
+            for order, leaf_aabb, leaf_mode, count in variants:
+                flags = dict(order=order, leaf_aabb=leaf_aabb,
+                             leaf_mode=leaf_mode)
+                ms = time_kernel(tables, depth, o, d, ex, tm,
+                                 count_steps=count, **flags)
+                if default_ms is None:
+                    default_ms = ms
+                _, _, cnt = tr.traverse(tables, o, d, depth, ex, tm,
+                                        count_steps=True, **flags)
+                b = bound_of(tables, cnt, ex is not None,
+                             leaf_aabb if leaf_mode == "full" else 0)
+                means = [round(float(c), 2)
+                         for c in cnt.float().mean(dim=0)]
+                out[(order, leaf_aabb, leaf_mode, count, shape)] = dict(
+                    ms=ms, counters=means,
+                    plain_ms=plain_ms[(order, leaf_aabb, leaf_mode,
+                                       shape)][0],
+                    err=plain_ms[(order, leaf_aabb, leaf_mode, shape)][1],
+                    **b)
+                print(f"[variants] {label} {shape} order={order} "
+                      f"leaf_aabb={leaf_aabb} leaf_mode={leaf_mode} "
+                      f"count_steps={count}: {ms:.3f} ms/launch "
+                      f"({ms / default_ms:.2f}x the default), per ray "
+                      f"[visits, leaf visits, groups, tri tests] {means}, "
+                      f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        return out
+
+    def make_target(cfg, ir_, device):
+        with torch.no_grad():
+            st = integrator.render_sample(
+                cfg, ir_, integrator.init_state(cfg, device), device=device)
+        return st["passes"][integrator.BEAUTY, :, :3] * 1.5 + 0.1
+
+    def grad_card_vs_cpu(label, cfg, ir_):
+        """fwd_bwd_step_accum, 4 samples, on the card and on the CPU:
+        loss within rtol 1e-4, every material gradient leaf within rtol
+        2e-3 / atol 1e-4 x the leaf's largest entry (sums in another
+        order, and the two devices' sin, cos, pow and log differ in the
+        last bit).  On the card, cache_traces=False must give exactly
+        the replayed gradients; the kernel is launched 10 times per
+        sample in pass 1, as often again in a re-traced pass 2, and not
+        once in a replayed sample."""
+        n = 4
+        res = {}
+        for name in ("cuda", "cpu"):
+            ir_n = ir_to(ir_, name)
+            target = make_target(cfg, ir_n, name)
+            tr.reset_counts()
+            res[name] = grad_mod.fwd_bwd_step_accum(cfg, ir_n, target, n,
+                                                    device=name)
+            if name == "cuda":
+                replay_launches = tr.launches
+                params = {"materials": grad_mod.float_subtree(
+                    ir_n["materials"])}
+                tr.reset_counts()
+                retraced = grad_mod.render_loss_and_grad_accum(
+                    cfg, ir_n, params, target, n, cache_traces=False)
+                retrace_launches = tr.launches
+                st, trace = integrator.render_sample(
+                    cfg, ir_n, integrator.init_state(cfg), record=True)
+                tr.reset_counts()
+                integrator.sample_radiance(
+                    cfg, ir_n, integrator.init_state(cfg)["rng"],
+                    cfg.x_res * cfg.y_res, trace_cache=trace)
+                replayed_sample_launches = tr.launches
+        if (replay_launches != 10 * n or retrace_launches != 20 * n
+                or replayed_sample_launches != 0):
+            fail(f"{label}: launches {replay_launches} (replay), "
+                 f"{retrace_launches} (re-trace), "
+                 f"{replayed_sample_launches} (one replayed sample); "
+                 f"expected {10 * n}, {20 * n}, 0")
+        loss_c, loss_h = float(res["cuda"][0]), float(res["cpu"][0])
+        if not abs(loss_c - loss_h) <= 1e-4 * abs(loss_h):
+            fail(f"{label}: loss {loss_c} on the card, {loss_h} on the CPU")
+        if float(retraced[0]) != loss_c:
+            fail(f"{label}: re-traced loss differs from the replayed one")
+        worst = 0.0
+        nonzero = 0
+        for k, g_h in res["cpu"][1]["materials"].items():
+            g_c = res["cuda"][1]["materials"][k]
+            if not torch.equal(g_c, retraced[1]["materials"][k]):
+                fail(f"{label}: leaf {k}: replayed and re-traced gradients "
+                     f"differ")
+            g_c = g_c.cpu()
+            scale = float(g_h.abs().max())
+            nonzero += scale > 0
+            if not bool(torch.isfinite(g_c).all()):
+                fail(f"{label}: leaf {k} is not finite on the card")
+            gap = float((g_c - g_h).abs().max())
+            if not bool(((g_c - g_h).abs()
+                         <= 2e-3 * g_h.abs() + 1e-4 * scale).all()):
+                fail(f"{label}: leaf {k} differs by {gap:.3g} (largest "
+                     f"entry {scale:.3g})")
+            if scale > 0:
+                worst = max(worst, gap / scale)
+        print(f"[grad parity] {label} {cfg.x_res}x{cfg.y_res}, "
+              f"{cfg.max_bounces} bounces, {n} samples: loss {loss_c:.8f} "
+              f"card / {loss_h:.8f} CPU; {len(res['cpu'][1]['materials'])} "
+              f"material leaves ({nonzero} non-zero), worst |card - CPU| "
+              f"{worst:.3g} of a leaf's largest entry; replay == re-trace "
+              f"exactly; launches {replay_launches} with replay, "
+              f"{retrace_launches} re-traced, {replayed_sample_launches} in "
+              f"a replayed sample")
+
+    def gradient_at_full_width(cfg, ir_):
+        """fwd_bwd_step_accum at the main path's width, 8 samples, default
+        RenderConfig (material_fetch="mm_bwd", replayed pass 2); then one
+        sample under every other (order, leaf_aabb) variant.  Returns
+        {(order, leaf_aabb): (closest-hit, any-hit) launches}."""
+        n = 8
+        res = cfg.x_res
+        if cfg.material_fetch != "mm_bwd" or cfg.remat_bounces:
+            fail("the gradient path is to run the default RenderConfig")
+        target = make_target(cfg, ir_, "cuda")
+        grad_mod.fwd_bwd_step_accum(cfg, ir_, target, 1)  # warm-up
+        torch.cuda.synchronize()
+        # Pass 1 alone: forward-only samples that record their traces.
+        t0 = time.time()
+        with torch.no_grad():
+            st = integrator.init_state(cfg)
+            for _ in range(n):
+                st, _ = integrator.render_sample(cfg, ir_, st, record=True)
+        torch.cuda.synchronize()
+        pass1 = time.time() - t0
+        del st
+        torch.cuda.reset_peak_memory_stats()
+        tr.reset_counts()
+        t0 = time.time()
+        loss, grads = grad_mod.fwd_bwd_step_accum(cfg, ir_, target, n)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = {("near", 0): (tr.launches - tr.any_hit_launches,
+                                  tr.any_hit_launches)}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        g = grads["materials"]
+        finite = all(bool(torch.isfinite(v).all()) for v in g.values())
+        rays = 2 * cfg.max_bounces * res * res * n
+        print(f"[gradient] fwd_bwd_step_accum {res}x{res}, "
+              f"{cfg.max_bounces} bounces, {n} samples, material_fetch="
+              f"{cfg.material_fetch}: {dt:.3f} s per fwd+bwd, "
+              f"{rays / dt:.4g} rays/s; pass 1 {pass1 / n * 1e3:.1f} "
+              f"ms/sample (timed alone), pass 2 "
+              f"{(dt - pass1) / n * 1e3:.1f} ms/sample (the rest); peak "
+              f"memory {peak:.0f} MiB; remat_bounces not needed; "
+              f"{tr.launches} kernel launches, all in pass 1")
+        print(f"[gradient] loss {float(loss):.8f}, albedo gradient "
+              f"{[round(x, 6) for x in g['albedo'].flatten().tolist()]}, "
+              f"finite {finite}")
+        if tr.launches != 10 * n:
+            fail(f"gradient path: {tr.launches} kernel launches, expected "
+                 f"{10 * n} (pass 1 only)")
+        if not (finite and bool(torch.isfinite(loss)) and float(loss) > 0
+                and float(g["albedo"].abs().sum()) > 0):
+            fail("gradient path: loss or gradients not finite and non-zero")
+        base_loss, base_grads = grad_mod.fwd_bwd_step_accum(cfg, ir_,
+                                                            target, 1)
+        for order, leaf_aabb in RENDER_VARIANTS[1:]:
+            tr.reset_counts()
+            v_loss, v_grads = grad_mod.fwd_bwd_step_accum(
+                cfg.replace(trace_order=order, leaf_aabb=leaf_aabb), ir_,
+                target, 1)
+            key = (order, leaf_aabb, "full", False)
+            if tr.variant_launches != {key: 10}:
+                fail(f"gradient path under {key}: launches "
+                     f"{tr.variant_launches}")
+            launches[(order, leaf_aabb)] = (
+                tr.launches - tr.any_hit_launches, tr.any_hit_launches)
+            # Same hits but for equal-t ties: the loss to 1e-4 relative.
+            rel = abs(float(v_loss) - float(base_loss)) / float(base_loss)
+            if not rel <= 1e-4:
+                fail(f"gradient path under {key}: loss differs by {rel:.3g}")
+            gap = float((v_grads["materials"]["albedo"]
+                         - base_grads["materials"]["albedo"]).abs().max())
+            print(f"[gradient] trace_order={order} leaf_aabb={leaf_aabb}, 1 "
+                  f"sample: loss {float(v_loss):.8f} (default "
+                  f"{float(base_loss):.8f}), albedo gradient differs by "
+                  f"{gap:.3g}; 10 launches of this variant")
+        return launches
 
     # ---- 3. kernel against its plain version -----------------------------
     t0 = time.time()
@@ -312,7 +644,7 @@ def main():
     print(f"[scene] {n_tris} tris, bvh depth {config.bvh_depth}, max leaf "
           f"{config.bvh_max_leaf}, built in {time.time() - t0:.1f} s")
     depth = config.bvh_depth
-    check_scene(ir, depth, "heightfield")
+    rays_main = check_scene(ir, depth, "heightfield")
     phase_done("phase 3", t0)
 
     # ---- 4. the main path at full width ----------------------------------
@@ -328,11 +660,11 @@ def main():
 
     # ---- 6. kernel timing at the main path's shapes ------------------------
     t0 = time.time()
-    timing = timing_at_recorded_shapes("main path", cfg, ir, depth)
+    timing, shapes = timing_at_recorded_shapes("main path", cfg, ir, depth)
     phase_done("phase 6", t0)
-    del scene, ir
     err12 = {k: max(v) for k, v in errs.items()}
-    errs = {"closest": [], "any_hit": []}
+    for v in errs.values():
+        v.clear()
 
     # ---- 7. config 5: build, kernel against its plain version -----------
     t0 = time.time()
@@ -346,7 +678,7 @@ def main():
     print(f"[config5] {n5} tris, bvh depth {config5.bvh_depth}, max leaf "
           f"{config5.bvh_max_leaf}, built in {time.time() - t0:.1f} s")
     depth5 = config5.bvh_depth
-    check_scene(ir5, depth5, "config5")
+    rays5 = check_scene(ir5, depth5, "config5")
     phase_done("phase 7", t0)
 
     # ---- 8. the config-5 path at full width -------------------------------
@@ -365,12 +697,55 @@ def main():
 
     # ---- 10. kernel timing at config 5's shapes -----------------------------
     t0 = time.time()
-    timing5 = timing_at_recorded_shapes("config5", cfg5, ir5, depth5)
+    timing5, shapes5 = timing_at_recorded_shapes("config5", cfg5, ir5,
+                                                 depth5)
     phase_done("phase 10", t0)
+    err3 = {k: max(v) for k, v in errs.items()}
+
+    # ---- 11. the kernel's variants against the plain version ---------------
+    t0 = time.time()
+    plain_ms = {}
+    for label, tables, dep, rays, rec in (
+            ("65,522 tris", ir["kernel"], depth, rays_main, shapes),
+            ("999,698 tris", ir5["kernel"], depth5, rays5, shapes5)):
+        plain_ms[label] = check_variants(label, tables, dep, rays, rec)
+    phase_done("phase 11", t0)
+
+    # ---- 12. the variants timed ---------------------------------------------
+    t0 = time.time()
+    vt = time_variants("main path", ir["kernel"], depth, shapes,
+                       plain_ms["65,522 tris"])
+    vt5 = time_variants("config5", ir5["kernel"], depth5, shapes5,
+                        plain_ms["999,698 tris"])
+    for label, old, new in (("main path", timing, vt),
+                            ("config5", timing5, vt5)):
+        for key, shape in (("closest_b1", "closest"),
+                           ("any_hit_b1", "any-hit")):
+            a = old[key]["bound_ms"]
+            b = new[("near", 0, "full", True, shape)]["bound_ms"]
+            print(f"[variants] {label} {shape}: bound from the kernel's "
+                  f"counters {b:.4f} ms; phases 6/10 had {a:.4f} ms "
+                  f"({'unchanged' if a == b else 'moved'})")
+    phase_done("phase 12", t0)
+    del ir5
+
+    # ---- 13. the gradient path, card against CPU ----------------------------
+    t0 = time.time()
+    grad_card_vs_cpu("heightfield", cfg.replace(x_res=64, y_res=64), ir)
+    grad_card_vs_cpu("textured heightfield (7,938 tris, point light)",
+                     small5.replace(max_bounces=5), ir_small)
+    phase_done("phase 13", t0)
+
+    # ---- 14. the gradient path at full width --------------------------------
+    t0 = time.time()
+    grad_launches = gradient_at_full_width(cfg, ir)
+    phase_done("phase 14", t0)
 
     src = "elevenrender_tpu_torch/csrc/bvh_traverse.cu"
     row12 = "elevenrender_tpu/ops/bvh_pallas.py:102"
     row3 = "elevenrender_tpu/ops/bvh_pallas.py:102 (stream=True)"
+    row4 = ("elevenrender_tpu/ops/bvh_pallas.py:102 (count_steps :286, "
+            "order=sign :371, leaf_aabb :260, leaf_mode :330)")
 
     def entry(name, replaces, launches, err, t, extra=None):
         e = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -381,20 +756,55 @@ def main():
         return e
 
     kern = [
-        entry("bvh_traverse closest-hit", row12, main_closest,
-              err12["closest"], timing["closest_b1"],
-              {"ms_bounce0": timing["closest_b0"]["ms"]}),
-        entry("bvh_traverse any-hit", row12, main_any_hit, err12["any_hit"],
-              timing["any_hit_b1"]),
+        entry("bvh_traverse closest-hit", row12,
+              main_closest + grad_launches[("near", 0)][0], err12["closest"],
+              timing["closest_b1"],
+              {"ms_bounce0": timing["closest_b0"]["ms"],
+               "launches_forward_path": main_closest,
+               "launches_gradient_path": grad_launches[("near", 0)][0]}),
+        entry("bvh_traverse any-hit", row12,
+              main_any_hit + grad_launches[("near", 0)][1], err12["any_hit"],
+              timing["any_hit_b1"],
+              {"launches_forward_path": main_any_hit,
+               "launches_gradient_path": grad_launches[("near", 0)][1]}),
         entry("bvh_traverse closest-hit, stream residency (config 5)", row3,
-              c5_closest, max(errs["closest"]), timing5["closest_b1"],
+              c5_closest, err3["closest"], timing5["closest_b1"],
               {"ms_bounce0": timing5["closest_b0"]["ms"]}),
         entry("bvh_traverse any-hit, stream residency (config 5, merged "
-              "2N-ray shadow launch)", row3, c5_any_hit,
-              max(errs["any_hit"]), timing5["any_hit_b1"]),
+              "2N-ray shadow launch)", row3, c5_any_hit, err3["any_hit"],
+              timing5["any_hit_b1"]),
     ]
+    # Row 4, the variants a render can ask for: launched on the gradient
+    # path (phase 14), timed at the main path's shapes (phase 12), held
+    # to the plain version bit for bit in phase 11 (its error there).
+    for order, leaf_aabb in RENDER_VARIANTS[1:]:
+        for i, shape in enumerate(("closest", "any-hit")):
+            t = vt[(order, leaf_aabb, "full", False, shape)]
+            kern.append(entry(
+                f"bvh_traverse {shape}, order={order} leaf_aabb={leaf_aabb}",
+                row4, grad_launches[(order, leaf_aabb)][i], t["err"], t,
+                {"counters_per_ray": t["counters"],
+                 "ms_config5": vt5[(order, leaf_aabb, "full", False,
+                                    shape)]["ms"]}))
+    # Row 4's instruments run on no render path (launches 0 there): the
+    # counters feed the bounds above, the probes split a launch's time.
+    instruments = []
+    for leaf_mode, count in (("full", True), ("noscan", False),
+                             ("skip", False)):
+        for shape in ("closest", "any-hit"):
+            t = vt[("near", 0, leaf_mode, count, shape)]
+            instruments.append(entry(
+                f"bvh_traverse {shape}, "
+                + ("count_steps" if count else f"leaf_mode={leaf_mode}"),
+                row4, 0, t["err"], t,
+                {"counters_per_ray": t["counters"],
+                 "ms_config5": vt5[("near", 0, leaf_mode, count,
+                                    shape)]["ms"]}))
+    for e in kern:
+        if e["launches"] < 1:
+            fail(f"kernel {e['name']!r} was launched no time on its path")
     print(f"[done] {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": kern}))
+    print(json.dumps({"kernels": kern, "instruments": instruments}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,12 +6,16 @@
 ``(RenderConfig, ir)``, with the CUDA traversal's tables built from
 ``ir["bvh"]`` and the leaf-ordered ``ir["tris"]["verts"]``.  It is how
 the tests hand both packages the same scene.  ``ir_to`` moves an IR
-between devices.
+between devices.  ``params_from_numpy`` and ``params_to_numpy`` carry a
+tree of gradient parameters or gradients (the JAX package's
+``jax.tree.map(np.asarray, params)``) to the port's dict of tensors and
+back, under the same names, so the two compare leaf by leaf.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.device import resolve_device
 from .ops.intersect import pack_tri_attributes
@@ -52,3 +56,19 @@ def ir_to(ir: dict, device) -> dict:
     dev = resolve_device(device)
     return {grp: {k: v.to(dev) for k, v in leaves.items()}
             for grp, leaves in ir.items()}
+
+
+def params_from_numpy(tree: dict, device="cuda") -> dict:
+    """A tree of numpy leaves (a ``params`` or ``grads`` tree of the JAX
+    package, as numpy) as the same tree of tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: (params_from_numpy(v, dev) if isinstance(v, dict)
+                else torch.tensor(np.asarray(v), device=dev))
+            for k, v in tree.items()}
+
+
+def params_to_numpy(tree: dict) -> dict:
+    """The port's ``params`` or ``grads`` tree as numpy leaves."""
+    return {k: (params_to_numpy(v) if isinstance(v, dict)
+                else v.detach().cpu().numpy())
+            for k, v in tree.items()}

@@ -1,14 +1,16 @@
-// BVH traversal for Hopper (sm_90a): closest-hit and any-hit in one kernel.
+// BVH traversal for Hopper (sm_90a): closest-hit and any-hit in one kernel,
+// with the TPU kernel's measurement and ordering variants as compile-time
+// instantiations.
 //
 // Replaces the TPU kernel elevenrender_tpu/ops/bvh_pallas.py:_kernel
 // (reached through traverse_pallas -> pl.pallas_call), in both of the
-// modes the forward render step uses: closest-hit for path rays and
-// any-hit (exclude / t_max) for shadow rays.  It also serves the TPU
-// kernel's stream residency (stream=True: the tri table in HBM, one DMA
-// per leaf-parent visit), which exists only because VMEM cannot hold
-// the tris of a large scene; here every table is read from global
-// memory through the read-only path, at any tri count the wrapper
-// admits (its 32-bit 3*i row indexing bounds tris and rays).
+// modes the render step uses: closest-hit for path rays and any-hit
+// (exclude / t_max) for shadow rays.  It also serves the TPU kernel's
+// stream residency (stream=True: the tri table in HBM, one DMA per
+// leaf-parent visit), which exists only because VMEM cannot hold the tris
+// of a large scene; here every table is read from global memory through
+// the read-only path, at any tri count the wrapper admits (its 32-bit 3*i
+// row indexing bounds tris and rays).
 //
 // Design: one thread per ray walks the implicit complete binary BVH
 // (preorder, left = node+1, right = node + 2^(D-depth)) with a private
@@ -27,13 +29,34 @@
 // Compiled with --fmad=false so every float op is rounded on its own, as
 // in the plain PyTorch version (ops/traverse.py), which it must equal.
 //
+// Variants (template parameters; the default instantiation <false, false,
+// 0, 0> is the walk above and nothing else):
+//   kCount     (the TPU kernel's count_steps): a fourth output, int32
+//              [N, 4] per ray: node visits, leaf-parent visits, 8-aligned
+//              slot groups of the leaf ranges entered
+//              (((to-1)>>3) - (from>>3) + 1 each), Moller-Trumbore tests
+//              executed.  The TPU kernel keeps these per 4096-ray tile.
+//   kSign      (order="sign"): when both children overlap, the first is
+//              picked from a per-node code (axis of largest child-centre
+//              separation, +3 if the left child is on its positive side)
+//              and the sign of the ray's own direction on that axis; the
+//              entry distances are not compared.  Hits are those of the
+//              near order up to equal-t ties; only the visit count moves.
+//   kLeafAabb  (leaf_aabb=1/2): before the tests of each aligned group of
+//              8 (mode 1) or 4 (mode 2) leaf-order slots, a slab test of
+//              the group's box, tmin < best_t included; a failed test
+//              skips the group.  A pure cull: ids and t are mode 0's.
+//   kLeafMode  (leaf_mode): 1 = "noscan", the leaf step without its
+//              triangle tests; 2 = "skip", no leaf step at all.  Timing
+//              probes: every ray misses, by design.
+//
 // What bounds it on this card: the work is fp32 arithmetic on the CUDA
-// cores (about 50 ops per interior visit, 55 per triangle test), against
-// a few tens of MB of rays and tables; so operations, counted from the
-// visits and tests of the run's own rays, set the bound of a closest-hit
-// launch, and divergence between the rays of a warp is what keeps the
-// kernel from it.  The tables stay in L2 at 66k tris (3.2 MiB); at 1M
-// tris the 45.8 MiB tri table shares the 50 MB L2 with the wavefront
+// cores (about 50 ops per interior visit, 55 per triangle test, 25 per
+// group box), against a few tens of MB of rays and tables; so operations,
+// counted by kCount from the run's own rays, set the bound of a
+// closest-hit launch, and divergence between the rays of a warp is what
+// keeps the kernel from it.  The tables stay in L2 at 66k tris (3.2 MiB);
+// at 1M tris the 45.8 MiB tri table shares the 50 MB L2 with the wavefront
 // and the shading's attribute rows, and the kernel does 1.4-2.2x less
 // work per millisecond (PERF.md, config 5).  Warp-coherent traversal, a
 // wide (4- or 8-ary) BVH, compressed nodes and FMA are later work.
@@ -48,17 +71,22 @@ constexpr int kStack = 32;  // the wrapper refuses depth + 2 > kStack
 __device__ __forceinline__ float mn(float a, float b) { return a < b ? a : b; }
 __device__ __forceinline__ float mx(float a, float b) { return a > b ? a : b; }
 
+struct Ray {
+  float ox, oy, oz;
+  float dx, dy, dz;
+  float ix, iy, iz;
+};
+
 // Slab test of one box; entry = its entry distance when it passes, else inf.
 __device__ __forceinline__ bool slab(float x1, float y1, float z1, float x2,
-                                     float y2, float z2, float ox, float oy,
-                                     float oz, float ix, float iy, float iz,
+                                     float y2, float z2, const Ray& r,
                                      float best_t, float& entry) {
-  float t1 = (x1 - ox) * ix;
-  float t2 = (x2 - ox) * ix;
-  float t3 = (y1 - oy) * iy;
-  float t4 = (y2 - oy) * iy;
-  float t5 = (z1 - oz) * iz;
-  float t6 = (z2 - oz) * iz;
+  float t1 = (x1 - r.ox) * r.ix;
+  float t2 = (x2 - r.ox) * r.ix;
+  float t3 = (y1 - r.oy) * r.iy;
+  float t4 = (y2 - r.oy) * r.iy;
+  float t5 = (z1 - r.oz) * r.iz;
+  float t6 = (z2 - r.oz) * r.iz;
   float tmin = mx(mx(mn(t1, t2), mn(t3, t4)), mn(t5, t6));
   float tmax = mn(mn(mx(t1, t2), mx(t3, t4)), mx(t5, t6));
   bool hit = !((tmax < 0.0f) || (tmin > tmax)) && (tmin < best_t);
@@ -66,29 +94,31 @@ __device__ __forceinline__ bool slab(float x1, float y1, float z1, float x2,
   return hit;
 }
 
-// Scans leaf-order tris [from, to).  Returns true when an any-hit ray
-// is resolved.
-__device__ __forceinline__ bool scan(const float4* __restrict__ tris, int from,
-                                     int to, float ox, float oy, float oz,
-                                     float dx, float dy, float dz, int any_hit,
-                                     int excl, int& best_idx, float& best_t) {
+// Tests leaf-order tris [from, to).  Returns true when an any-hit ray is
+// resolved.
+template <bool kCount>
+__device__ __forceinline__ bool test_tris(const float4* __restrict__ tris,
+                                          int from, int to, const Ray& r,
+                                          int any_hit, int excl, int& best_idx,
+                                          float& best_t, int& tests) {
   for (int slot = from; slot < to; ++slot) {
     const float4 a = __ldg(&tris[3 * slot + 0]);  // v0
     const float4 b = __ldg(&tris[3 * slot + 1]);  // e1 = v1 - v0
     const float4 c = __ldg(&tris[3 * slot + 2]);  // e2 = v2 - v0
-    float px = dy * c.z - dz * c.y;
-    float py = dz * c.x - dx * c.z;
-    float pz = dx * c.y - dy * c.x;
+    if constexpr (kCount) ++tests;
+    float px = r.dy * c.z - r.dz * c.y;
+    float py = r.dz * c.x - r.dx * c.z;
+    float pz = r.dx * c.y - r.dy * c.x;
     float det = b.x * px + b.y * py + b.z * pz;
     float inv_det = 1.0f / (fabsf(det) < 1e-30f ? 1e-30f : det);
-    float tx = ox - a.x;
-    float ty = oy - a.y;
-    float tz = oz - a.z;
+    float tx = r.ox - a.x;
+    float ty = r.oy - a.y;
+    float tz = r.oz - a.z;
     float u = (tx * px + ty * py + tz * pz) * inv_det;
     float qx = ty * b.z - tz * b.y;
     float qy = tz * b.x - tx * b.z;
     float qz = tx * b.y - ty * b.x;
-    float v = (dx * qx + dy * qy + dz * qz) * inv_det;
+    float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
     float t = (c.x * qx + c.y * qy + c.z * qz) * inv_det;
     bool ok = (fabsf(det) > 1e-7f) && (u >= 0.0f) && (u <= 1.0f) &&
               (v >= 0.0f) && (u + v <= 1.0f) && (t >= 0.0f) && (t < best_t);
@@ -106,25 +136,72 @@ __device__ __forceinline__ bool scan(const float4* __restrict__ tris, int from,
   return false;
 }
 
+// Scans one leaf's range [from, to): every slot (kLeafAabb == 0), or
+// group by group behind each group's box test.  Group g covers slots
+// [g << shift, (g + 1) << shift) of the leaf order; its box is rows 2g
+// and 2g + 1 of `groups` (bmin.xyz, -, bmax.xyz, -).
+template <bool kCount, int kLeafAabb>
+__device__ __forceinline__ bool scan(const float4* __restrict__ tris,
+                                     const float4* __restrict__ groups,
+                                     int from, int to, const Ray& r,
+                                     int any_hit, int excl, int& best_idx,
+                                     float& best_t, int& tests) {
+  if constexpr (kLeafAabb == 0) {
+    return test_tris<kCount>(tris, from, to, r, any_hit, excl, best_idx,
+                             best_t, tests);
+  } else {
+    constexpr int kShift = kLeafAabb == 1 ? 3 : 2;
+    if (to <= from) return false;
+    const int g_last = (to - 1) >> kShift;
+    for (int g = from >> kShift; g <= g_last; ++g) {
+      const float4 lo = __ldg(&groups[2 * g + 0]);
+      const float4 hi = __ldg(&groups[2 * g + 1]);
+      float entry;
+      if (!slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r, best_t, entry))
+        continue;
+      const int s0 = max(from, g << kShift);
+      const int s1 = min(to, (g + 1) << kShift);
+      if (test_tris<kCount>(tris, s0, s1, r, any_hit, excl, best_idx, best_t,
+                            tests))
+        return true;
+    }
+    return false;
+  }
+}
+
+__device__ __forceinline__ int groups_of_8(int from, int to) {
+  return to > from ? ((to - 1) >> 3) - (from >> 3) + 1 : 0;
+}
+
+template <bool kCount, bool kSign, int kLeafAabb, int kLeafMode>
 __global__ void __launch_bounds__(128)
 bvh_traverse_kernel(const float4* __restrict__ boxes,
                     const int4* __restrict__ leaves,
                     const float4* __restrict__ tris,
+                    const int* __restrict__ order_code,
+                    const float4* __restrict__ groups,
                     const float* __restrict__ ray_o,
                     const float* __restrict__ ray_d,
                     const int* __restrict__ exclude,
                     const float* __restrict__ t_max, int* __restrict__ out_idx,
-                    float* __restrict__ out_t, int n, int depth, int any_hit) {
+                    float* __restrict__ out_t, int4* __restrict__ out_counts,
+                    int n, int depth, int any_hit) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float ox = ray_o[3 * i + 0], oy = ray_o[3 * i + 1],
-              oz = ray_o[3 * i + 2];
-  const float dx = ray_d[3 * i + 0], dy = ray_d[3 * i + 1],
-              dz = ray_d[3 * i + 2];
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  Ray r;
+  r.ox = ray_o[3 * i + 0];
+  r.oy = ray_o[3 * i + 1];
+  r.oz = ray_o[3 * i + 2];
+  r.dx = ray_d[3 * i + 0];
+  r.dy = ray_d[3 * i + 1];
+  r.dz = ray_d[3 * i + 2];
+  r.ix = 1.0f / r.dx;
+  r.iy = 1.0f / r.dy;
+  r.iz = 1.0f / r.dz;
   const int excl = any_hit ? exclude[i] : -1;
   float best_t = any_hit ? t_max[i] : CUDART_INF_F;
   int best_idx = -1;
+  int c_visits = 0, c_leaf = 0, c_groups = 0, c_tests = 0;
 
   int stack_node[kStack];
   int stack_dep[kStack];
@@ -137,27 +214,50 @@ bvh_traverse_kernel(const float4* __restrict__ boxes,
     const float4 b0 = __ldg(&boxes[3 * node + 0]);
     const float4 b1 = __ldg(&boxes[3 * node + 1]);
     const float4 b2 = __ldg(&boxes[3 * node + 2]);
+    if constexpr (kCount) ++c_visits;
     float l_near, r_near;
-    const bool l_over = slab(b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, ox, oy, oz,
-                             ix, iy, iz, best_t, l_near);
-    const bool r_over = slab(b1.z, b1.w, b2.x, b2.y, b2.z, b2.w, ox, oy, oz,
-                             ix, iy, iz, best_t, r_near);
+    const bool l_over =
+        slab(b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, r, best_t, l_near);
+    const bool r_over =
+        slab(b1.z, b1.w, b2.x, b2.y, b2.z, b2.w, r, best_t, r_near);
     const bool at_leaf_parent = ndep == depth - 1;
-    if (at_leaf_parent && (l_over || r_over)) {
-      const int4 lf = __ldg(&leaves[node]);  // (l_from, l_to, r_from, r_to)
-      if (r_over && scan(tris, lf.z, lf.w, ox, oy, oz, dx, dy, dz, any_hit,
-                         excl, best_idx, best_t))
-        break;
-      if (l_over && scan(tris, lf.x, lf.y, ox, oy, oz, dx, dy, dz, any_hit,
-                         excl, best_idx, best_t))
-        break;
+    if constexpr (kLeafMode != 2) {
+      if (at_leaf_parent && (l_over || r_over)) {
+        const int4 lf = __ldg(&leaves[node]);  // (l_from, l_to, r_from, r_to)
+        if constexpr (kCount) ++c_leaf;
+        if (r_over) {
+          if constexpr (kCount) c_groups += groups_of_8(lf.z, lf.w);
+          if constexpr (kLeafMode == 0) {
+            if (scan<kCount, kLeafAabb>(tris, groups, lf.z, lf.w, r, any_hit,
+                                        excl, best_idx, best_t, c_tests))
+              break;
+          }
+        }
+        if (l_over) {
+          if constexpr (kCount) c_groups += groups_of_8(lf.x, lf.y);
+          if constexpr (kLeafMode == 0) {
+            if (scan<kCount, kLeafAabb>(tris, groups, lf.x, lf.y, r, any_hit,
+                                        excl, best_idx, best_t, c_tests))
+              break;
+          }
+        }
+      }
     }
     const bool trav_l = l_over && !at_leaf_parent;
     const bool trav_r = r_over && !at_leaf_parent;
     const int l_idx = node + 1;
     const int r_idx = node + (1 << (depth - ndep));
     if (trav_l && trav_r) {
-      const bool l_first = l_near <= r_near;
+      bool l_first;
+      if constexpr (kSign) {
+        const int code = __ldg(&order_code[node]);
+        const bool left_pos = code >= 3;
+        const int ax = left_pos ? code - 3 : code;
+        const float dir = ax == 0 ? r.dx : (ax == 1 ? r.dy : r.dz);
+        l_first = (dir >= 0.0f) != left_pos;
+      } else {
+        l_first = l_near <= r_near;
+      }
       stack_node[sp] = l_first ? r_idx : l_idx;
       stack_dep[sp] = ndep + 1;
       ++sp;
@@ -175,29 +275,59 @@ bvh_traverse_kernel(const float4* __restrict__ boxes,
   }
   out_idx[i] = best_idx;
   out_t[i] = best_t;
+  if constexpr (kCount)
+    out_counts[i] = make_int4(c_visits, c_leaf, c_groups, c_tests);
 }
+
+using Kernel = void (*)(const float4*, const int4*, const float4*, const int*,
+                        const float4*, const float*, const float*, const int*,
+                        const float*, int*, float*, int4*, int, int, int);
+
+// The leaf variants a launch can ask for: the full scan with leaf_aabb 0,
+// 1 or 2, then the two probes (which make no tests, so have no box mode).
+#define LEAF_VARIANTS(C, S)                                         \
+  {                                                                 \
+    &bvh_traverse_kernel<C, S, 0, 0>, &bvh_traverse_kernel<C, S, 1, 0>, \
+        &bvh_traverse_kernel<C, S, 2, 0>, &bvh_traverse_kernel<C, S, 0, 1>, \
+        &bvh_traverse_kernel<C, S, 0, 2>                            \
+  }
+
+const Kernel kKernels[2][2][5] = {
+    {LEAF_VARIANTS(false, false), LEAF_VARIANTS(false, true)},
+    {LEAF_VARIANTS(true, false), LEAF_VARIANTS(true, true)}};
 
 }  // namespace
 
 extern "C" {
 
-// All pointers are device pointers; exclude and t_max may be null when
-// any_hit == 0.  Launches on `stream` and returns the cudaError_t of the
-// launch (0 on success).
+// All pointers are device pointers.  exclude and t_max may be null when
+// any_hit == 0, order_code when sign_order == 0, groups (the box table of
+// the leaf_aabb mode asked for) when leaf_aabb == 0 or leaf_mode != 0,
+// out_counts when count_steps == 0.  leaf_mode: 0 full, 1 noscan, 2 skip.
+// Launches on `stream` and returns the cudaError_t of the launch (0 on
+// success; cudaErrorInvalidValue for a variant that does not exist).
 int bvh_traverse(const void* boxes, const void* leaves, const void* tris,
-                 const void* ray_o, const void* ray_d, const void* exclude,
-                 const void* t_max, void* out_idx, void* out_t, int n,
-                 int depth, int any_hit, void* stream) {
+                 const void* order_code, const void* groups, const void* ray_o,
+                 const void* ray_d, const void* exclude, const void* t_max,
+                 void* out_idx, void* out_t, void* out_counts, int n,
+                 int depth, int any_hit, int count_steps, int sign_order,
+                 int leaf_aabb, int leaf_mode, void* stream) {
+  if (leaf_aabb < 0 || leaf_aabb > 2 || leaf_mode < 0 || leaf_mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
+  const int variant = leaf_mode == 0 ? leaf_aabb : 2 + leaf_mode;
+  const Kernel kernel =
+      kKernels[count_steps ? 1 : 0][sign_order ? 1 : 0][variant];
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
-  bvh_traverse_kernel<<<blocks, threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes), static_cast<const int4*>(leaves),
-      static_cast<const float4*>(tris), static_cast<const float*>(ray_o),
+      static_cast<const float4*>(tris), static_cast<const int*>(order_code),
+      static_cast<const float4*>(groups), static_cast<const float*>(ray_o),
       static_cast<const float*>(ray_d), static_cast<const int*>(exclude),
       static_cast<const float*>(t_max), static_cast<int*>(out_idx),
-      static_cast<float*>(out_t), n, depth, any_hit);
+      static_cast<float*>(out_t), static_cast<int4*>(out_counts), n, depth,
+      any_hit);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,13 +8,28 @@ per-ray stack walk in PyTorch with the kernel's visit order, prune,
 Möller-Trumbore arithmetic and any-hit rule, so the two give the same
 ids and bit-equal t.  ``brute_force`` tests every tri, for tiny scenes.
 
+Both take the TPU kernel's variants: ``order`` ("near": nearer child
+first; "sign": the child on the side the ray comes from, by a per-node
+code), ``leaf_aabb`` (0; 1 or 2: a box test in front of each aligned
+group of 8 or 4 leaf slots, a pure cull), ``leaf_mode`` ("full";
+"noscan" and "skip" are timing probes that miss every ray) and
+``count_steps`` (a third result, int32 [N, 4] per ray: node visits,
+leaf-parent visits, 8-aligned slot groups of the leaf ranges entered,
+Möller-Trumbore tests executed).
+
 Kernel tables (``pack_tables``, built by ``build_ir``/``ir_from_numpy``):
-  boxes  f32 [NN, 12]: row p = both children of interior node p
-         (left bmin, left bmax, right bmin, right bmax), read as 3 float4;
-  leaves i32 [NN, 4]:  row p = (l_from, l_to, r_from, r_to) of leaf
-         parent p;
-  tris   f32 [T, 12]:  (v0, 0, e1, 0, e2, 0) per tri in leaf order, with
-         e1 = v1 - v0 and e2 = v2 - v0 precomputed in float32.
+  boxes   f32 [NN, 12]: row p = both children of interior node p
+          (left bmin, left bmax, right bmin, right bmax), read as 3 float4;
+  leaves  i32 [NN, 4]:  row p = (l_from, l_to, r_from, r_to) of leaf
+          parent p;
+  tris    f32 [T, 12]:  (v0, 0, e1, 0, e2, 0) per tri in leaf order, with
+          e1 = v1 - v0 and e2 = v2 - v0 precomputed in float32;
+  order   i32 [NN]:     row p = the ordering code of interior node p: the
+          axis of largest separation of its children's centres, + 3 if
+          the left child lies on the positive side of it;
+  groups8 f32 [ceil(T/8), 8], groups4 f32 [ceil(T/4), 8]: row g = the
+          box (bmin, 0, bmax, 0) of leaf-order slots [8g, 8g+8) or
+          [4g, 4g+4), read as 2 float4.
 """
 
 from __future__ import annotations
@@ -32,15 +47,23 @@ STACK = 32  # the kernel's per-thread stack (csrc/bvh_traverse.cu kStack)
 # (float4 rows; 3 floats per ray): the most rows of each it can address.
 MAX_ROWS = (2**31 - 1) // 3
 
-# Kernel launches since the last reset: all of them, and the any-hit ones.
+ORDERS = ("near", "sign")
+LEAF_MODES = ("full", "noscan", "skip")
+_GROUP_TABLE = {1: "groups8", 2: "groups4"}
+_GROUP_SHIFT = {1: 3, 2: 2}
+
+# Kernel launches since the last reset: all of them, the any-hit ones, and
+# per variant (order, leaf_aabb, leaf_mode, count_steps) -> launches.
 launches = 0
 any_hit_launches = 0
+variant_launches: dict = {}
 
 
 def reset_counts() -> None:
     global launches, any_hit_launches
     launches = 0
     any_hit_launches = 0
+    variant_launches.clear()
 
 
 def pack_tables(node_bmin, node_bmax, node_from, node_to, verts_sorted,
@@ -52,6 +75,7 @@ def pack_tables(node_bmin, node_bmax, node_from, node_to, verts_sorted,
     nn = node_bmin.shape[0]
     boxes = np.zeros((nn, 12), np.float32)
     leaves = np.zeros((nn, 4), np.int32)
+    order = np.zeros((nn,), np.int32)
     pre = preorder_indices(depth)
     for d in range(depth):
         p = pre[d]
@@ -61,17 +85,41 @@ def pack_tables(node_bmin, node_bmax, node_from, node_to, verts_sorted,
         boxes[p, 3:6] = node_bmax[l]
         boxes[p, 6:9] = node_bmin[r]
         boxes[p, 9:12] = node_bmax[r]
+        with np.errstate(invalid="ignore"):  # empty nodes have no centre
+            diff = ((node_bmin[r] + node_bmax[r]) * 0.5
+                    - (node_bmin[l] + node_bmax[l]) * 0.5)
+            ax = np.argmax(np.abs(diff), axis=1)
+            left_pos = diff[np.arange(len(ax)), ax] < 0.0
+        order[p] = ax + 3 * left_pos
         if d == depth - 1:
             leaves[p, 0] = node_from[l]
             leaves[p, 1] = node_to[l]
             leaves[p, 2] = node_from[r]
             leaves[p, 3] = node_to[r]
     v = np.asarray(verts_sorted, np.float32).reshape(-1, 3, 3)
-    tris = np.zeros((v.shape[0], 12), np.float32)
+    n_tris = v.shape[0]
+    tris = np.zeros((n_tris, 12), np.float32)
     tris[:, 0:3] = v[:, 0]
     tris[:, 4:7] = v[:, 1] - v[:, 0]
     tris[:, 8:11] = v[:, 2] - v[:, 0]
-    return {"boxes": boxes, "leaves": leaves, "tris": tris}
+    # Group boxes over the corners the kernel's arithmetic sees:
+    # v0, v0 + e1, v0 + e2.
+    corners = np.stack([tris[:, 0:3], tris[:, 0:3] + tris[:, 4:7],
+                        tris[:, 0:3] + tris[:, 8:11]], axis=1)
+    tmin = corners.min(axis=1) if n_tris else np.zeros((0, 3), np.float32)
+    tmax = corners.max(axis=1) if n_tris else np.zeros((0, 3), np.float32)
+    out = {"boxes": boxes, "leaves": leaves, "tris": tris, "order": order}
+    for mode, name in _GROUP_TABLE.items():
+        size = 1 << _GROUP_SHIFT[mode]
+        n_groups = -(-n_tris // size)
+        pad = n_groups * size - n_tris
+        gmin = np.concatenate([tmin, np.full((pad, 3), np.inf, np.float32)])
+        gmax = np.concatenate([tmax, np.full((pad, 3), -np.inf, np.float32)])
+        table = np.zeros((n_groups, 8), np.float32)
+        table[:, 0:3] = gmin.reshape(n_groups, size, 3).min(axis=1)
+        table[:, 4:7] = gmax.reshape(n_groups, size, 3).max(axis=1)
+        out[name] = table
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -79,20 +127,37 @@ def pack_tables(node_bmin, node_bmax, node_from, node_to, verts_sorted,
 # --------------------------------------------------------------------------
 
 def traverse(tables: dict, ray_o, ray_d, depth: int, exclude=None,
-             t_max=None):
+             t_max=None, order: str = "near", leaf_aabb: int = 0,
+             leaf_mode: str = "full", count_steps: bool = False):
     """Nearest hit (or, with ``exclude`` [N] i32 and ``t_max`` [N] f32,
     occlusion) of rays [N, 3] against the tables' BVH.
 
     Returns (idx [N] i32, t [N] f32): the leaf-order tri id (-1 on a
     miss) and its distance.  In any-hit mode ``idx >= 0`` is the
-    occlusion flag and t is -inf on a hit."""
+    occlusion flag and t is -inf on a hit.  With ``count_steps`` a third
+    result, the per-ray work counts [N, 4] i32 (see the module's note).
+    ``order``, ``leaf_aabb`` and ``leaf_mode`` as the module's note says;
+    an unknown value raises ``ValueError``."""
     if (exclude is None) != (t_max is None):
         raise ValueError("exclude and t_max come together (any-hit mode)")
+    check_variant(order, leaf_aabb, leaf_mode)
     if ray_o.device.type == "cpu":
-        return traverse_plain(tables, ray_o, ray_d, depth, exclude, t_max)
+        return traverse_plain(tables, ray_o, ray_d, depth, exclude, t_max,
+                              order, leaf_aabb, leaf_mode, count_steps)
     if ray_o.device.type != "cuda":
         raise ValueError(f"traverse: unsupported device {ray_o.device}")
-    return _launch(tables, ray_o, ray_d, depth, exclude, t_max)
+    return _launch(tables, ray_o, ray_d, depth, exclude, t_max, order,
+                   leaf_aabb, leaf_mode, count_steps)
+
+
+def check_variant(order, leaf_aabb, leaf_mode):
+    if order not in ORDERS:
+        raise ValueError(f"order {order!r}: expected one of {ORDERS}")
+    if leaf_aabb not in (0, 1, 2):
+        raise ValueError(f"leaf_aabb {leaf_aabb!r}: expected 0, 1 or 2")
+    if leaf_mode not in LEAF_MODES:
+        raise ValueError(f"leaf_mode {leaf_mode!r}: expected one of "
+                         f"{LEAF_MODES}")
 
 
 def _check(name, x, dtype, shape, device):
@@ -119,7 +184,7 @@ def _library():
         lib = kernels.load("bvh_traverse")
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.bvh_traverse.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.bvh_traverse.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.bvh_traverse.restype = ctypes.c_int
         lib.bvh_traverse_error_string.argtypes = [ctypes.c_int]
         lib.bvh_traverse_error_string.restype = ctypes.c_char_p
@@ -145,8 +210,10 @@ def _check_leaf_ranges(leaves, t_rows):
     _checked_leaves.add(key)
 
 
-def _launch(tables, ray_o, ray_d, depth, exclude, t_max):
+def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
+            leaf_aabb=0, leaf_mode="full", count_steps=False):
     global launches, any_hit_launches
+    check_variant(order, leaf_aabb, leaf_mode)
     dev = ray_o.device
     n = ray_o.shape[0]
     nn = tables["boxes"].shape[0]
@@ -164,6 +231,16 @@ def _launch(tables, ray_o, ray_d, depth, exclude, t_max):
         raise ValueError(f"{t_rows} tris and {n} rays: the kernel's 32-bit "
                          f"indexing serves at most {MAX_ROWS} of each")
     _check_leaf_ranges(tables["leaves"], t_rows)
+    code = groups = None
+    if order == "sign":
+        code = tables["order"]
+        _check("order", code, torch.int32, (nn,), dev)
+    scans = leaf_mode == "full"
+    if leaf_aabb and scans:
+        groups = tables[_GROUP_TABLE[leaf_aabb]]
+        size = 1 << _GROUP_SHIFT[leaf_aabb]
+        _check(_GROUP_TABLE[leaf_aabb], groups, torch.float32,
+               (-(-t_rows // size), 8), dev)
     _check("ray_o", ray_o, torch.float32, (n, 3), dev)
     _check("ray_d", ray_d, torch.float32, (n, 3), dev)
     any_hit = exclude is not None
@@ -172,21 +249,31 @@ def _launch(tables, ray_o, ray_d, depth, exclude, t_max):
         _check("t_max", t_max, torch.float32, (n,), dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
+    counts = (torch.empty((n, 4), dtype=torch.int32, device=dev)
+              if count_steps else None)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bvh_traverse(
-            tables["boxes"].data_ptr(), tables["leaves"].data_ptr(),
-            tables["tris"].data_ptr(), ray_o.data_ptr(), ray_d.data_ptr(),
-            exclude.data_ptr() if any_hit else None,
-            t_max.data_ptr() if any_hit else None,
-            idx.data_ptr(), t.data_ptr(), n, depth, int(any_hit), stream)
+            ptr(tables["boxes"]), ptr(tables["leaves"]), ptr(tables["tris"]),
+            ptr(code), ptr(groups), ptr(ray_o), ptr(ray_d), ptr(exclude),
+            ptr(t_max), ptr(idx), ptr(t), ptr(counts), n, depth,
+            int(any_hit), int(count_steps), int(order == "sign"),
+            leaf_aabb if scans else 0, LEAF_MODES.index(leaf_mode), stream)
     if rc != 0:
         raise RuntimeError("bvh_traverse launch failed: "
                            + lib.bvh_traverse_error_string(rc).decode())
     if n > 0:
         launches += 1
         any_hit_launches += int(any_hit)
+        key = (order, leaf_aabb, leaf_mode, bool(count_steps))
+        variant_launches[key] = variant_launches.get(key, 0) + 1
+    if count_steps:
+        return idx, t, counts
     return idx, t
 
 
@@ -202,16 +289,23 @@ def _mx(a, b):
     return torch.where(a > b, a, b)
 
 
-def _slab(bmin, bmax, o, inv, best_t):
-    t1 = (bmin[:, 0] - o[:, 0]) * inv[:, 0]
-    t2 = (bmax[:, 0] - o[:, 0]) * inv[:, 0]
-    t3 = (bmin[:, 1] - o[:, 1]) * inv[:, 1]
-    t4 = (bmax[:, 1] - o[:, 1]) * inv[:, 1]
-    t5 = (bmin[:, 2] - o[:, 2]) * inv[:, 2]
-    t6 = (bmax[:, 2] - o[:, 2]) * inv[:, 2]
+def _slab_parts(bmin, bmax, o, inv):
+    """The slab test without its prune: (the ray meets the box, its entry
+    distance).  bmin/bmax/o/inv broadcastable [..., 3]."""
+    t1 = (bmin[..., 0] - o[..., 0]) * inv[..., 0]
+    t2 = (bmax[..., 0] - o[..., 0]) * inv[..., 0]
+    t3 = (bmin[..., 1] - o[..., 1]) * inv[..., 1]
+    t4 = (bmax[..., 1] - o[..., 1]) * inv[..., 1]
+    t5 = (bmin[..., 2] - o[..., 2]) * inv[..., 2]
+    t6 = (bmax[..., 2] - o[..., 2]) * inv[..., 2]
     tmin = _mx(_mx(_mn(t1, t2), _mn(t3, t4)), _mn(t5, t6))
     tmax = _mn(_mn(_mx(t1, t2), _mx(t3, t4)), _mx(t5, t6))
-    hit = ~((tmax < 0.0) | (tmin > tmax)) & (tmin < best_t)
+    return ~((tmax < 0.0) | (tmin > tmax)), tmin
+
+
+def _slab(bmin, bmax, o, inv, best_t):
+    meets, tmin = _slab_parts(bmin, bmax, o, inv)
+    hit = meets & (tmin < best_t)
     return hit, torch.where(hit, tmin, torch.full_like(tmin, float("inf")))
 
 
@@ -248,12 +342,18 @@ def _mt(tri, o, d):
 _LEAF_CHUNK = 1 << 23
 
 
+def _groups_of_8(frm, to, over):
+    return torch.where(over & (to > frm), ((to - 1) >> 3) - (frm >> 3) + 1,
+                       torch.zeros_like(frm))
+
+
 def _leaf_scan(tris, lv, l_over, r_over, o, d, best_idx, best_t, excl,
                any_hit):
     """Scans the right child's slots then the left's for each ray, in one
     batched pass, with the sequential rules: closest-hit keeps the first
     slot (in scan order) of least t below best_t; any-hit keeps the first
-    accepted slot.  Returns (idx, t, hit, tested slots)."""
+    accepted slot.  Returns (idx, t, hit, tested slots, an any-hit ray
+    was resolved in the right child)."""
     nr = torch.where(r_over, lv[:, 3] - lv[:, 2], torch.zeros_like(lv[:, 0]))
     nl = torch.where(l_over, lv[:, 1] - lv[:, 0], torch.zeros_like(lv[:, 0]))
     total = nr + nl
@@ -261,9 +361,10 @@ def _leaf_scan(tris, lv, l_over, r_over, o, d, best_idx, best_t, excl,
     out_idx = best_idx.clone()
     out_t = best_t.clone()
     hit = torch.zeros_like(l_over)
+    in_right = torch.zeros_like(l_over)
     tested = total.clone()
     if width == 0:
-        return out_idx, out_t, hit, tested
+        return out_idx, out_t, hit, tested, in_right
     rows = max(1, _LEAF_CHUNK // width)
     j = torch.arange(width, device=o.device)
     for s in range(0, lv.shape[0], rows):
@@ -292,22 +393,123 @@ def _leaf_scan(tris, lv, l_over, r_over, o, d, best_idx, best_t, excl,
         out_idx[s:e] = torch.where(has, pick, out_idx[s:e])
         out_t[s:e] = torch.where(has, pick_t, out_t[s:e])
         hit[s:e] = has
-    return out_idx, out_t, hit, tested
+        if any_hit:
+            in_right[s:e] = has & (first < nr[s:e])
+    return out_idx, out_t, hit, tested, in_right
+
+
+def _leaf_scan_grouped(tris, boxes, shift, lv, l_over, r_over, o, d, inv,
+                       best_idx, best_t, excl, any_hit):
+    """``_leaf_scan`` behind the group boxes (``leaf_aabb`` 1 or 2): the
+    right child's aligned groups of ``1 << shift`` slots, then the
+    left's; a group is tested only if its box passes the slab test with
+    the best_t of that moment.  Same results as ``_leaf_scan``."""
+    size = 1 << shift
+    dev = o.device
+    zero = torch.zeros_like(lv[:, 0])
+
+    def n_groups(frm, to, over):
+        return torch.where(over & (to > frm),
+                           ((to - 1) >> shift) - (frm >> shift) + 1, zero)
+
+    ngr = n_groups(lv[:, 2], lv[:, 3], r_over)
+    ngl = n_groups(lv[:, 0], lv[:, 1], l_over)
+    total = ngr + ngl
+    width = int(total.max()) if total.numel() else 0
+    out_idx = best_idx.clone()
+    out_t = best_t.clone()
+    hit = torch.zeros_like(l_over)
+    in_right = torch.zeros_like(l_over)
+    tested = zero.clone()
+    if width == 0:
+        return out_idx, out_t, hit, tested, in_right
+    rows = max(1, _LEAF_CHUNK // (width * size))
+    j = torch.arange(width, device=dev)[None, :]
+    k = torch.arange(size, device=dev)[None, None, :]
+    for s in range(0, lv.shape[0], rows):
+        e = min(s + rows, lv.shape[0])
+        c = lv[s:e]
+        right = j < ngr[s:e, None]
+        g = torch.where(right, (c[:, 2:3] >> shift) + j,
+                        (c[:, 0:1] >> shift) + (j - ngr[s:e, None]))
+        gvalid = j < total[s:e, None]
+        g = torch.where(gvalid, g, torch.zeros_like(g))
+        frm = torch.where(right, c[:, 2:3], c[:, 0:1])
+        to = torch.where(right, c[:, 3:4], c[:, 1:2])
+        s0 = torch.maximum(frm, g << shift)
+        s1 = torch.minimum(to, (g + 1) << shift)
+        box = boxes[g]
+        meets, entry = _slab_parts(box[..., 0:3], box[..., 4:7],
+                                   o[s:e, None, :], inv[s:e, None, :])
+        meets = meets & gvalid
+        slot = (g << shift)[:, :, None] + k
+        svalid = (gvalid[:, :, None] & (slot >= s0[:, :, None])
+                  & (slot < s1[:, :, None]))
+        tri = tris[torch.where(svalid, slot, torch.zeros_like(slot))]
+        ok, t = _mt(tri, o[s:e, None, None, :], d[s:e, None, None, :])
+        ok = ok & svalid
+        bt = best_t[s:e]
+        bi = best_idx[s:e]
+        if any_hit:
+            # best_t stays t_max until the ray is resolved.
+            passed = meets & (entry < bt[:, None])
+            ok = (ok & passed[:, :, None] & (t < bt[:, None, None])
+                  & (slot != excl[s:e, None, None]))
+            flat = ok.reshape(e - s, -1)
+            has = flat.any(dim=1)
+            first = torch.argmax(flat.to(torch.int8), dim=1)
+            done = (svalid & passed[:, :, None]).reshape(e - s, -1).cumsum(1)
+            tested[s:e] = torch.where(has, done.gather(1, first[:, None])[:, 0],
+                                      done[:, -1])
+            pick = slot.reshape(e - s, -1).gather(1, first[:, None])[:, 0]
+            out_idx[s:e] = torch.where(has, pick, bi)
+            out_t[s:e] = torch.where(has, torch.full_like(bt, float("-inf")),
+                                     bt)
+            hit[s:e] = has
+            in_right[s:e] = has & ((first // size) < ngr[s:e])
+            continue
+        n_tested = torch.zeros_like(ngr[s:e])
+        for q in range(width):
+            passed = meets[:, q] & (entry[:, q] < bt)
+            okq = ok[:, q] & passed[:, None] & (t[:, q] < bt[:, None])
+            tm = torch.where(okq, t[:, q], torch.full_like(t[:, q],
+                                                          float("inf")))
+            tmin = tm.min(dim=1).values
+            has = okq.any(dim=1)
+            first = torch.argmax((okq & (tm == tmin[:, None])).to(torch.int8),
+                                 dim=1)
+            pick = slot[:, q].gather(1, first[:, None])[:, 0]
+            bi = torch.where(has, pick, bi)
+            bt = torch.where(has, tmin, bt)
+            n_tested = n_tested + torch.where(passed, s1[:, q] - s0[:, q],
+                                              torch.zeros_like(n_tested))
+            hit[s:e] |= has
+        out_idx[s:e] = bi
+        out_t[s:e] = bt
+        tested[s:e] = n_tested
+    return out_idx, out_t, hit, tested, in_right
 
 
 def traverse_plain(tables: dict, ray_o, ray_d, depth: int, exclude=None,
-                   t_max=None, counters: bool = False):
-    """The kernel's walk as lockstep PyTorch over the still-active rays.
+                   t_max=None, order: str = "near", leaf_aabb: int = 0,
+                   leaf_mode: str = "full", count_steps: bool = False):
+    """The kernel's walk as lockstep PyTorch over the still-active rays,
+    with the kernel's arguments.
 
-    Same results as the kernel (ids equal, t bit-equal).  With
-    ``counters=True`` also returns per-ray work counts {"visits": interior
-    node visits, "tests": Möller-Trumbore tests}, the inputs to the
-    kernel's bound."""
+    Same results as the kernel for every variant (ids equal, t bit-equal)
+    and, with ``count_steps``, the same per-ray counts [N, 4] i32: node
+    visits, leaf-parent visits, 8-aligned slot groups of the leaf ranges
+    entered, Möller-Trumbore tests (the inputs to the kernel's bound)."""
+    check_variant(order, leaf_aabb, leaf_mode)
     dev = ray_o.device
     n = ray_o.shape[0]
     any_hit = exclude is not None
     boxes, leaves, tris = tables["boxes"], tables["leaves"], tables["tris"]
     leaves = leaves.to(torch.int64)
+    sign = order == "sign"
+    code = tables["order"].to(torch.int64) if sign else None
+    grouped = leaf_aabb != 0 and leaf_mode == "full"
+    group_boxes = tables[_GROUP_TABLE[leaf_aabb]] if grouped else None
     inv = 1.0 / ray_d
     best_idx = torch.full((n,), -1, dtype=torch.int64, device=dev)
     best_t = (t_max.clone() if any_hit
@@ -318,8 +520,7 @@ def traverse_plain(tables: dict, ray_o, ray_d, depth: int, exclude=None,
     node = torch.zeros((n,), dtype=torch.int64, device=dev)
     ndep = torch.zeros_like(node)
     sp = torch.ones_like(node)
-    visits = torch.zeros_like(node)
-    tests = torch.zeros_like(node)
+    counts = torch.zeros((n, 4), dtype=torch.int64, device=dev)
     act = torch.arange(n, device=dev)
     while act.numel():
         nd, dep, bt = node[act], ndep[act], best_t[act]
@@ -328,28 +529,51 @@ def traverse_plain(tables: dict, ray_o, ray_d, depth: int, exclude=None,
         l_over, l_near = _slab(b[:, 0:3], b[:, 3:6], o, iv, bt)
         r_over, r_near = _slab(b[:, 6:9], b[:, 9:12], o, iv, bt)
         alp = dep == depth - 1
-        visits[act] += 1
+        counts[act, 0] += 1
         resolved = torch.zeros_like(alp)
         at_leaf = alp & (l_over | r_over)
-        if bool(at_leaf.any()):
+        if leaf_mode != "skip" and bool(at_leaf.any()):
             sel = at_leaf.nonzero()[:, 0]
             ga = act[sel]
-            idx2, t2, hit, tested = _leaf_scan(
-                tris, leaves[nd[sel]], l_over[sel], r_over[sel], ray_o[ga],
-                ray_d[ga], best_idx[ga], best_t[ga],
-                excl[ga] if any_hit else None, any_hit)
-            best_idx[ga] = idx2
-            best_t[ga] = t2
-            tests[ga] += tested
-            if any_hit:
-                resolved[sel] = hit
+            lv = leaves[nd[sel]]
+            lo, ro = l_over[sel], r_over[sel]
+            counts[ga, 1] += 1
+            in_right = torch.zeros_like(lo)
+            if leaf_mode == "full":
+                args = (lv, lo, ro, ray_o[ga], ray_d[ga])
+                rest = (best_idx[ga], best_t[ga],
+                        excl[ga] if any_hit else None, any_hit)
+                if grouped:
+                    idx2, t2, hit, tested, in_right = _leaf_scan_grouped(
+                        tris, group_boxes, _GROUP_SHIFT[leaf_aabb], *args,
+                        inv[ga], *rest)
+                else:
+                    idx2, t2, hit, tested, in_right = _leaf_scan(
+                        tris, *args, *rest)
+                best_idx[ga] = idx2
+                best_t[ga] = t2
+                counts[ga, 3] += tested
+                if any_hit:
+                    resolved[sel] = hit
+            # An any-hit ray resolved in the right child never enters
+            # the left.
+            counts[ga, 2] += (_groups_of_8(lv[:, 2], lv[:, 3], ro)
+                              + _groups_of_8(lv[:, 0], lv[:, 1],
+                                             lo & ~in_right))
         trav_l = l_over & ~alp
         trav_r = r_over & ~alp
         push = trav_l & trav_r
         pop = ~trav_l & ~trav_r
         l_idx = nd + 1
         r_idx = nd + (1 << (depth - dep))
-        l_first = l_near <= r_near
+        if sign:
+            c = code[nd]
+            left_pos = c >= 3
+            ax = torch.where(left_pos, c - 3, c)
+            along = ray_d[act].gather(1, ax[:, None])[:, 0]
+            l_first = (along >= 0.0) != left_pos
+        else:
+            l_first = l_near <= r_near
         first = torch.where(l_first, l_idx, r_idx)
         second = torch.where(l_first, r_idx, l_idx)
         s = sp[act]
@@ -366,8 +590,8 @@ def traverse_plain(tables: dict, ray_o, ray_d, depth: int, exclude=None,
         done = (pop & (popped_node < 0)) | resolved
         act = act[~done]
     out = (best_idx.to(torch.int32), best_t)
-    if counters:
-        return out + ({"visits": visits, "tests": tests},)
+    if count_steps:
+        return out + (counts.to(torch.int32),)
     return out
 
 

@@ -19,14 +19,22 @@ once per bounce by hit point and sampled direction (and the native
 shadow rays by their own gate) so that neighbouring threads walk
 neighbouring rays; the sort changes no result beyond equal-t ties.
 
-Forward only: the gradient slice (``record``/``trace_cache``, the custom
-``material_fetch`` backward) and ``sort_impl="counting"`` raise
-``NotImplementedError``.
+The gradient path (``render/grad.py``) differentiates one sample's
+radiance with the detached-sampling estimator: hit ids, texel and lobe
+choices, sampled directions and the RNG stream are constants of the
+backward pass.  ``record=True`` returns each bounce's discrete trace
+results (hit ids, occlusion bits) and ``trace_cache=`` replays them, so
+a replayed sample launches no traversal and sorts no rays.
+``sort_impl="counting"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import rng as rng_mod
 from ..core.device import resolve_device
@@ -78,10 +86,34 @@ def resolve_trace_mode(config, ir) -> str:
     return "bvh"
 
 
+def recommended_samples_per_dispatch(config, ir, default: int = 8) -> int:
+    """Samples per host-loop chunk of the gradient accumulator.
+
+    The JAX package bounds this by scene scale, because one jitted
+    dispatch there must stay inside its runtime's wall-time envelope.
+    PyTorch runs eagerly, one kernel at a time, so no scene size forces a
+    smaller chunk: the port keeps the two overrides and otherwise returns
+    ``default``.  ``config.samples_per_dispatch > 0`` wins over the
+    default, and the ``ELEVENRT_SAMPLES_PER_DISPATCH`` environment
+    variable wins over both.  Results are the same at any chunking."""
+    env = os.environ.get("ELEVENRT_SAMPLES_PER_DISPATCH")
+    if env:
+        try:
+            return max(int(env), 1)
+        except ValueError:
+            logging.getLogger(__name__).warning(
+                "ELEVENRT_SAMPLES_PER_DISPATCH=%r is not an integer; "
+                "ignoring the override", env)
+    if config.samples_per_dispatch > 0:
+        return config.samples_per_dispatch
+    return default
+
+
 def uses_sort(config, ir) -> bool:
     return config.sort_rays and resolve_trace_mode(config, ir) == "bvh"
 
 
+@torch.no_grad()
 def _sort(config, ir, origin, direction, mask):
     return sort_for_packets(origin, direction, ir["bvh"]["node_bmin"][0],
                             ir["bvh"]["node_bmax"][0], mask=mask,
@@ -90,6 +122,7 @@ def _sort(config, ir, origin, direction, mask):
                             dir_bits=config.sort_dir_bits)
 
 
+@torch.no_grad()
 def _trace(config, ir, ray_o, ray_d, mask=None, perm=None, exclude=None,
            t_max=None, sort=True):
     """Nearest hit per ray (idx i64, -1 on a miss; t), or with
@@ -99,7 +132,11 @@ def _trace(config, ir, ray_o, ray_d, mask=None, perm=None, exclude=None,
     ``mask``: lanes that need a result; the others get a ray that misses
     the root's children at once.  ``perm``: a precomputed (order,
     inverse) pair; with ``sort`` and no ``perm`` the rays are sorted
-    here.  Brute force emulates occlusion by nearest hit plus filter."""
+    here.  Brute force emulates occlusion by nearest hit plus filter.
+    ``config.trace_order`` and ``config.leaf_aabb`` choose the traversal
+    kernel's variant.  No gradient flows through a trace: its results
+    are constants of the estimator."""
+    traverse_ops.check_variant(config.trace_order, config.leaf_aabb, "full")
     occl = exclude is not None
     if resolve_trace_mode(config, ir) == "brute":
         idx, t = traverse_ops.brute_force(ir["tris"]["verts"], ray_o, ray_d)
@@ -134,12 +171,89 @@ def _trace(config, ir, ray_o, ray_d, mask=None, perm=None, exclude=None,
         t_max = t_max.contiguous()
     idx, t = traverse_ops.traverse(ir["kernel"], ray_o.contiguous(),
                                    ray_d.contiguous(), config.bvh_depth,
-                                   exclude=exclude, t_max=t_max)
+                                   exclude=exclude, t_max=t_max,
+                                   order=config.trace_order,
+                                   leaf_aabb=config.leaf_aabb)
     idx = idx.to(torch.int64)
     if inverse is not None:
         idx = idx[inverse]
         t = t[inverse]
     return idx, t
+
+
+class _ClipBalanced(torch.autograd.Function):
+    """``clamp(x, lo, hi)`` with the JAX package's gradient at the
+    bounds: ``jnp.clip`` is ``minimum(maximum(x, lo), hi)``, and each of
+    the two splits the cotangent evenly on a tie, where ``torch.clamp``
+    passes all of it.  A pixel whose radiance is exactly 0 (every term
+    masked or occluded) is such a tie, and its emission gradient would
+    otherwise be twice the reference's."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        up = (x > lo).to(ct.dtype) + 0.5 * (x == lo).to(ct.dtype)
+        y = torch.clamp(x, min=lo)
+        down = (y < hi).to(ct.dtype) + 0.5 * (y == hi).to(ct.dtype)
+        return ct * up * down, None, None
+
+
+class _GatherRowsMmBwd(torch.autograd.Function):
+    """``table[m]`` whose backward is a one-hot matrix product,
+    ``onehot(m).T @ ct`` in full float32, instead of the colliding
+    scatter-add that autograd derives for a gather of [npix] rows from a
+    table of a few.  The forward value is the gather's, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, table, m):
+        ctx.save_for_backward(m)
+        ctx.rows = table.shape[0]
+        return table[m]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (m,) = ctx.saved_tensors
+        flat = m.reshape(-1)
+        onehot = (flat[:, None] == torch.arange(
+            ctx.rows, device=m.device)[None, :]).to(ct.dtype)
+        return _matmul_fp32(onehot.t(), ct.reshape(flat.shape[0], -1)), None
+
+
+def _matmul_fp32(a, b):
+    """``a @ b`` accumulated in full float32, PyTorch's default on the
+    card.  It changes no process-wide precision setting; where the
+    caller has allowed TF32 products it raises rather than lose digits
+    silently."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "material_fetch='mm_bwd'/'onehot' needs full-float32 matrix "
+            "products: torch.backends.cuda.matmul.allow_tf32 is True")
+    return a @ b
+
+
+def _material_rows(config, table, m):
+    """Rows ``m`` of the packed [M, 19] material table, by
+    ``config.material_fetch``: "mm_bwd" gathers forward and multiplies
+    backward, "onehot" multiplies both ways, "gather" (and any table of
+    more than 64 rows) leaves both to autograd."""
+    if config.material_fetch not in ("mm_bwd", "onehot", "gather"):
+        raise ValueError(f"material_fetch {config.material_fetch!r}: "
+                         "expected 'mm_bwd', 'onehot' or 'gather'")
+    if table.shape[0] <= 64:
+        if config.material_fetch == "mm_bwd":
+            return _GatherRowsMmBwd.apply(table, m)
+        if config.material_fetch == "onehot":
+            onehot = (m[..., None] == torch.arange(
+                table.shape[0], device=m.device)).to(torch.float32)
+            return _matmul_fp32(onehot, table)
+    return table[m]
 
 
 def _generate_hitdata(config, ir, hit, ray_d) -> dict:
@@ -151,12 +265,8 @@ def _generate_hitdata(config, ir, hit, ray_d) -> dict:
     atlas = ir["atlas"]
     table = torch.cat([mats["albedo"], mats["emission"]]
                       + [mats[s][:, None] for s in _SCALAR_FIELDS], dim=1)
-    if table.requires_grad and config.material_fetch != "gather":
-        raise NotImplementedError(
-            f"material_fetch={config.material_fetch!r} defines a custom "
-            "backward (gradient slice, not ported yet); use 'gather'")
     m = hit["mat"]
-    row = table[m]
+    row = _material_rows(config, table, m)
     scalar = {s: row[..., 6 + i] for i, s in enumerate(_SCALAR_FIELDS)}
     tex = mats["tex"][m]
     tu, tv = hit["tu"], hit["tv"]
@@ -224,11 +334,18 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
     "ok" (no NaN), "normal"/"tangent"/"bitangent"/"albedo" first-hit
     AOVs, "rays" (alive-ray count when config.count_rays)}.
 
-    ``record``/``trace_cache`` (the gradient accumulator's trace replay)
-    belong to the gradient slice and raise for now."""
-    if record or trace_cache is not None:
-        raise NotImplementedError(
-            "record/trace_cache (gradient trace replay) are not ported yet")
+    ``record=True`` adds out["trace"], each bounce's discrete trace
+    results: {"hit" [B, npix] int32 path-hit tri ids, "occ" [B, npix]
+    bool environment-shadow occlusion, "locc" the light shadow's with
+    point lights}.  ``trace_cache=<that dict>`` replays them instead of
+    tracing: the bounce loop then launches no traversal and sorts no
+    rays.  The estimator treats those results as constants either way,
+    so a replayed sample's gradient is exactly the traced one's.
+
+    ``config.remat_bounces`` checkpoints each bounce: the backward pass
+    recomputes a bounce from its carry (the RNG state rides in the
+    carry, so the recomputation draws the same numbers) instead of
+    keeping its intermediates."""
     dev = rng.device
     x_res, y_res = config.x_res, config.y_res
     f32 = dict(dtype=torch.float32, device=dev)
@@ -246,26 +363,30 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
     ray_o, ray_d = camera_ray(cam, x_res, y_res, px, py, r1, r2, r3, r4, r5)
 
     zeros3 = torch.zeros((npix, 3), **f32)
-    light = zeros3
-    reduction = torch.ones((npix, 3), **f32)
-    aov_normal = aov_tangent = aov_bitangent = aov_albedo = zeros3
-    alive = torch.ones((npix,), dtype=torch.bool, device=dev)
     env = ir["env"]
     H, W, _ = env["img"].shape
-    prev_brdf_pdf = torch.zeros((npix,), **f32)
-    had_bounce = torch.zeros((npix,), dtype=torch.bool, device=dev)
-    rays = torch.zeros((), **f32)
-    use_sort = uses_sort(config, ir)
-    perm = None  # bounce 0's camera rays are pixel-ordered: no sort
+    replay = trace_cache is not None
+    use_sort = uses_sort(config, ir) and not replay
     inf_col = torch.full((npix,), float("inf"), **f32)
     merge_lights = not config.compat and config.n_lights > 0
-
     n_bounces = max(config.max_bounces, 1)  # bounce 0 always runs
-    for bounce in range(n_bounces):
+
+    def bounce_body(bounce, carry, perm):
+        """One bounce.  Returns (carry, the permutation for the next
+        bounce's path rays, (hit ids, env occlusion, light occlusion))."""
+        (rng, ray_o, ray_d, light, reduction, alive, aov_normal,
+         aov_tangent, aov_bitangent, aov_albedo, prev_brdf_pdf, had_bounce,
+         rays) = carry
         if config.count_rays:
             rays = rays + alive.to(torch.float32).sum()
-        hit_idx, _ = _trace(config, ir, ray_o, ray_d, mask=alive, perm=perm,
-                            sort=use_sort and bounce > 0)
+        if replay:
+            hit_idx = trace_cache["hit"][bounce].to(torch.int64)
+        else:
+            # The distance is dropped: full_hit recomputes t and the
+            # position, differentiably, from the hit tri.  Bounce 0's
+            # camera rays are pixel-ordered: no sort.
+            hit_idx, _ = _trace(config, ir, ray_o, ray_d, mask=alive,
+                                perm=perm, sort=use_sort and bounce > 0)
 
         miss = alive & (hit_idx < 0)
         if config.compat:
@@ -318,7 +439,13 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
         wihdri = -normalize(reverse_spherical_mapping(nu, nv))
         shadow_o = hd["position"] + n * 1e-3
 
-        wibrdf = disney_sample(hd, wo, n, rs1, rs2, rs3)
+        if config.compat:
+            wibrdf = disney_sample(hd, wo, n, rs1, rs2, rs3)
+        else:
+            # Detached sampling: the sampled direction is a constant of
+            # the backward pass.
+            with torch.no_grad():
+                wibrdf = disney_sample(hd, wo, n, rs1, rs2, rs3)
 
         last = bounce == n_bounces - 1
         bounce_perm = None
@@ -343,24 +470,31 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
                                            min=1e-12))
             wi_l = to_light / ldist[..., None]
 
-        if config.compat:
-            # Reference parity: nearest hit plus the self-hit test; every
-            # shading lane launches.
-            s_idx, _ = _trace(config, ir, shadow_o, wihdri, mask=shade,
-                              perm=bounce_perm)
-            occluded = (s_idx >= 0) & (s_idx != hit_idx)
-        else:
+        l_occluded = None
+        if not config.compat:
             # NEE gate = disney_eval's own gate: where it fails, the NEE
             # term is 0 and occlusion does not matter.
             g_common = shade & (dot(wo, n) > 0.0) \
                 & (hd["transmission"] < 1.0)
             g_hdri = g_common & (dot(wihdri, n) > 0.0)
             if merge_lights:
+                g_l = g_common & (dot(wi_l, n) > 0.0)
+        if replay:
+            occluded = trace_cache["occ"][bounce]
+            if merge_lights:
+                l_occluded = trace_cache["locc"][bounce]
+        elif config.compat:
+            # Reference parity: nearest hit plus the self-hit test; every
+            # shading lane launches.
+            s_idx, _ = _trace(config, ir, shadow_o, wihdri, mask=shade,
+                              perm=bounce_perm)
+            occluded = (s_idx >= 0) & (s_idx != hit_idx)
+        else:
+            if merge_lights:
                 # The environment and light shadow rays as one any-hit
                 # launch of 2N rays: the light half starts 1e-3 along
                 # wi_l and stops 1e-3 short of the light; both halves
                 # exclude the source tri.
-                g_l = g_common & (dot(wi_l, n) > 0.0)
                 so = torch.cat([shadow_o, hd["position"] + wi_l * 1e-3])
                 sd = torch.cat([wihdri, wi_l])
                 gate = torch.cat([g_hdri, g_l])
@@ -382,7 +516,6 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
             occluded = s_idx[:npix] >= 0
             if merge_lights:
                 l_occluded = s_idx[npix:] >= 0
-        perm = bounce_perm
 
         f_nee = disney_eval(hd, wo, n, wihdri)
         if config.compat:
@@ -448,12 +581,40 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
             rays = rays + launched.to(torch.float32).sum()
             if merge_lights:
                 rays = rays + g_l.to(torch.float32).sum()
+        carry = (rng, ray_o, ray_d, light, reduction, alive, aov_normal,
+                 aov_tangent, aov_bitangent, aov_albedo, prev_brdf_pdf,
+                 had_bounce, rays)
+        return carry, bounce_perm, (hit_idx, occluded, l_occluded)
 
-    light = torch.clamp(light, 0.0, config.clamp_radiance)
+    carry = (rng, ray_o, ray_d, zeros3, torch.ones((npix, 3), **f32),
+             torch.ones((npix,), dtype=torch.bool, device=dev), zeros3,
+             zeros3, zeros3, zeros3, torch.zeros((npix,), **f32),
+             torch.zeros((npix,), dtype=torch.bool, device=dev),
+             torch.zeros((), **f32))
+    perm = None
+    recorded = []
+    for bounce in range(n_bounces):
+        if config.remat_bounces:
+            carry, perm, found = checkpoint(
+                bounce_body, bounce, carry, perm, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            carry, perm, found = bounce_body(bounce, carry, perm)
+        recorded.append(found)
+
+    (rng, _, _, light, _, _, aov_normal, aov_tangent, aov_bitangent,
+     aov_albedo, _, _, rays) = carry
+    light = _ClipBalanced.apply(light, 0.0, config.clamp_radiance)
     ok = ~torch.isnan(light).any(dim=-1)
     out = {"light": light, "ok": ok, "normal": aov_normal,
            "tangent": aov_tangent, "bitangent": aov_bitangent,
            "albedo": aov_albedo, "rays": rays}
+    if record:
+        out["trace"] = {
+            "hit": torch.stack([f[0].to(torch.int32) for f in recorded]),
+            "occ": torch.stack([f[1] for f in recorded])}
+        if merge_lights:
+            out["trace"]["locc"] = torch.stack([f[2] for f in recorded])
     return out, rng
 
 
@@ -461,7 +622,9 @@ def render_sample(config, ir, state, pixel_offset=0, record=False,
                   device="cuda"):
     """Advance the accumulators by one progressive sample for every
     pixel of ``state``; returns the new state (the input is not
-    modified).  ``state`` and ``ir`` must lie on ``device``."""
+    modified), or with ``record=True`` (new state, the sample's trace
+    record: see ``sample_radiance``).  ``state`` and ``ir`` must lie on
+    ``device``."""
     dev = resolve_device(device)
     if state["rng"].device.type != dev.type:
         raise ValueError(f"state is on {state['rng'].device}, "
@@ -478,14 +641,14 @@ def render_sample(config, ir, state, pixel_offset=0, record=False,
     rgb_scale = torch.where(ok[None, :, None], scale[None, :, None],
                             torch.ones_like(scale)[None, :, None])
     rgb = passes[:, :, :3] * rgb_scale
-    adds = torch.zeros_like(rgb)
+    adds = [None] * PASSES_COUNT
     for pid, val in ((BEAUTY, out["light"]), (NORMAL, out["normal"]),
                      (TANGENT, out["tangent"]),
                      (BITANGENT, out["bitangent"]),
                      (DENOISE, out["albedo"])):
         add = val * inv[:, None]
         adds[pid] = torch.where(ok[:, None], add, torch.zeros_like(add))
-    rgb = rgb + adds
+    rgb = rgb + torch.stack(adds)
     new_state = {
         "passes": torch.cat([rgb, passes[:, :, 3:]], dim=2),
         "samples": state["samples"] + ok.to(torch.int64),
@@ -493,4 +656,6 @@ def render_sample(config, ir, state, pixel_offset=0, record=False,
     }
     if config.count_rays:
         new_state["ray_count"] = state["ray_count"] + out["rays"]
+    if record:
+        return new_state, out["trace"]
     return new_state

@@ -10,6 +10,7 @@ pass and ``config.denoise`` raise ``NotImplementedError``.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..convert import ir_to
 from ..core.device import resolve_device
@@ -38,10 +39,14 @@ class Renderer:
         self.state = init_state(config, self.device)
 
     def step(self, n: int = 1) -> None:
-        """Run n progressive samples."""
-        for _ in range(n):
-            self.state = render_sample(self.config, self.ir, self.state,
-                                       device=self.device)
+        """Run n progressive samples.  No autograd graph is built, even
+        if a scene tensor requires grad: the accumulators would otherwise
+        hold the graph of every sample (gradients are ``render/grad.py``'s
+        entry points)."""
+        with torch.no_grad():
+            for _ in range(n):
+                self.state = render_sample(self.config, self.ir, self.state,
+                                           device=self.device)
 
     def get_pass(self, name: str, apply_denoise: bool | None = None
                  ) -> np.ndarray:

@@ -64,10 +64,12 @@ class RenderConfig:
     # "brute" tests every tri; any other value, and "auto" above 64 tris,
     # goes through the CUDA traversal (its plain version on the CPU).
     trace_mode: str = "auto"
-    # TPU tile and A/B knobs of the Pallas kernel; not read by the port.
+    # TPU tile widths of the Pallas kernel; not read by the port.
     packet_tile: int = 128
     pallas_sub: int = 32
     shadow_pallas_sub: int = 0
+    # Variants of the traversal kernel (ops/traverse.py): child order
+    # "near" | "sign", and the leaf group boxes 0 | 1 | 2.
     trace_order: str = "near"
     leaf_aabb: int = 0
     # Per-bounce Morton/octant sort of the rays before each traversal.
@@ -76,13 +78,18 @@ class RenderConfig:
     sort_dir_bits: int = 3
     sort_impl: str = "argsort"     # "counting" is not ported yet: raises
     packed_sort_io: bool = True    # TPU gather layout; the port gathers
-    samples_per_dispatch: int = 0  # TPU dispatch cap; not read
+    # > 0 overrides recommended_samples_per_dispatch (the accumulator's
+    # chunk; it bounds nothing in an eager program).
+    samples_per_dispatch: int = 0
     # Dedicated shadow-ray sort keyed on the NEE gate (native mode).
     shadow_sort: bool = True
     env_sampler: str = "alias"     # native env texel sampler: alias | cdf
-    # Backward-pass material fetch; the forward step gathers either way.
+    # Material fetch: "mm_bwd" gathers forward and multiplies by a
+    # one-hot matrix backward, "onehot" multiplies both ways, "gather"
+    # leaves the backward to autograd's scatter-add.
     material_fetch: str = "mm_bwd"
-    remat_bounces: bool = False    # gradient slice; not read
+    # Checkpoint each bounce: the backward pass recomputes it.
+    remat_bounces: bool = False
     tex_slots_used: tuple = (True, True, True, True, True, True, True)
     tex_uniform_filter: int = -1
     use_shaders: bool = True

@@ -211,19 +211,60 @@ def test_renderer_passes_and_unported_features():
     with pytest.raises(NotImplementedError):
         Renderer(cfg.replace(sort_impl="counting", trace_mode="pallas"), ir,
                  device="cpu").step(1)
-    # The gradient slice: trace recording and the custom material VJP.
+    # The gradient slice's options no longer raise: a recorded sample
+    # equals the plain one, and every material_fetch renders with a
+    # table that requires grad.
     state = ti.init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ti.render_sample(cfg, ir, state, record=True, device="cpu")
+    want = ti.render_sample(cfg, ir, state, device="cpu")
+    got, trace = ti.render_sample(cfg, ir, state, record=True, device="cpu")
+    assert torch.equal(got["passes"], want["passes"])
+    assert trace["hit"].shape == (cfg.max_bounces, 64)
+    assert trace["hit"].dtype == torch.int32
+    assert trace["occ"].dtype == torch.bool and "locc" not in trace
     ir_g = dict(ir)
     ir_g["materials"] = dict(ir["materials"])
     ir_g["materials"]["albedo"] = ir["materials"]["albedo"].clone() \
         .requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        ti.render_sample(cfg.replace(material_fetch="mm_bwd"), ir_g, state,
+    for fetch in ("mm_bwd", "onehot", "gather"):
+        st = ti.render_sample(cfg.replace(material_fetch=fetch), ir_g, state,
+                              device="cpu")
+        assert st["passes"].requires_grad
+        assert torch.equal(st["passes"].detach(), want["passes"])
+    with pytest.raises(ValueError):
+        ti.render_sample(cfg.replace(material_fetch="scatter"), ir, state,
                          device="cpu")
-    ti.render_sample(cfg.replace(material_fetch="gather"), ir_g, state,
-                     device="cpu")
+
+
+def test_trace_order_and_leaf_aabb_reach_the_traversal():
+    """``trace_order="sign", leaf_aabb=1`` renders the default image
+    (the variants change the walk, not the hits; an equal-t tie may pick
+    another tri, within the pair tolerance of (b)), the traversal is
+    asked for that variant, and an unknown value raises."""
+    _, cfg, ir = demo.heightfield_scene(grid=12, res=16, compat=False,
+                                        device="cpu")
+    cfg = cfg.replace(trace_mode="pallas", max_bounces=3)
+    images = {}
+    seen = []
+    plain = tt.traverse_plain
+
+    def spy(*args, **kw):
+        seen.append((args[6], args[7]))
+        return plain(*args, **kw)
+
+    for name, kw in (("default", {}),
+                     ("sign", dict(trace_order="sign", leaf_aabb=1))):
+        r = Renderer(cfg.replace(**kw), ir, device="cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tt, "traverse_plain", spy)
+            r.step(1)
+        images[name] = r.get_pass("beauty").reshape(-1, 4)[:, :3]
+    assert set(seen) == {("near", 0), ("sign", 1)}
+    assert _close_frac(images["sign"], images["default"]) >= 0.99
+    np.testing.assert_allclose(images["sign"].mean(),
+                               images["default"].mean(), rtol=1e-4)
+    for bad in (dict(trace_order="far"), dict(leaf_aabb=3)):
+        with pytest.raises(ValueError):
+            Renderer(cfg.replace(**bad), ir, device="cpu").step(1)
 
 
 @pytest.mark.parametrize("name,compat", [("featured_16x16_compat", True),

@@ -76,6 +76,33 @@ for build in (heightfield_scene, textured_heightfield_scene):
     assert "rendered textured_heightfield_scene" in res.stdout
 
 
+def test_gradient_path_runs_without_jax():
+    """The two-pass accumulator (record, replay, mm_bwd) and the direct
+    gradient, with jax and the JAX package blocked from import."""
+    code = """
+import torch
+from elevenrender_tpu_torch.render import grad
+from elevenrender_tpu_torch.render.integrator import (BEAUTY, init_state,
+                                                      render_sample)
+from elevenrender_tpu_torch.scene.demo import textured_heightfield_scene
+_, config, ir = textured_heightfield_scene(grid=10, res=8, device="cpu")
+config = config.replace(compat=False, max_bounces=2)
+assert config.material_fetch == "mm_bwd" and config.n_lights == 1
+with torch.no_grad():
+    state = render_sample(config, ir, init_state(config, "cpu"), device="cpu")
+target = state["passes"][BEAUTY, :, :3] * 1.5 + 0.1
+for step in (grad.fwd_bwd_step_accum, grad.fwd_bwd_step):
+    loss, grads = step(config, ir, target, 2, device="cpu")
+    g = grads["materials"]["roughness"]
+    assert torch.isfinite(loss) and torch.isfinite(g).all() and g.abs().sum() > 0
+    print("gradient", step.__name__, float(loss))
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "gradient fwd_bwd_step_accum" in res.stdout
+    assert "gradient fwd_bwd_step " in res.stdout
+
+
 def test_chip_smoke_refuses_to_run_without_a_card():
     """Without CUDA the smoke test exits non-zero and prints no result;
     its failure is the missing card, not a missing jax."""

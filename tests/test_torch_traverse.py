@@ -12,6 +12,14 @@ kernel built with --fmad=false does, while XLA's CPU backend contracts
 a*b+c into one FMA in the interpreted kernel; on grazing heightfield
 rays that alone moved t by up to 1.03e-6 relative.  The any-hit
 occlusion flag must be equal on every ray.
+
+The same holds for the kernel's variants (``order="sign"``,
+``leaf_aabb`` 1 and 2, the ``leaf_mode`` probes), each against the
+Pallas kernel under the same flag; ``leaf_aabb`` must be a pure cull;
+and the ``count_steps`` counters must equal the Pallas kernel's where
+the two count the same thing: a tile filled with copies of one ray makes
+the TPU kernel's per-tile node visits, leaf-parent visits and leaf rows
+that ray's own.
 """
 
 import dataclasses
@@ -172,16 +180,204 @@ def _check_any_hit(case, t_max_kind):
 
 def test_counters_and_dispatch(case):
     """traverse() on CPU tensors is the plain version and launches no
-    kernel; the counters see every ray."""
+    kernel; the counters see every ray and leave the results alone."""
     tt.reset_counts()
     o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
     i1, t1 = tt.traverse(case["tables"], o, d, case["depth"])
-    i2, t2, cnt = tt.traverse_plain(case["tables"], o, d, case["depth"],
-                                    counters=True)
+    i2, t2, cnt = tt.traverse(case["tables"], o, d, case["depth"],
+                              count_steps=True)
     assert tt.launches == 0 and tt.any_hit_launches == 0
+    assert not tt.variant_launches
     assert torch.equal(i1, i2) and torch.equal(t1, t2)
-    assert int(cnt["visits"].min()) >= 1
-    assert int(cnt["tests"][i2 >= 0].min()) >= 1
+    assert cnt.shape == (o.shape[0], 4) and cnt.dtype == torch.int32
+    visits, leaf_visits, groups, tests = cnt.unbind(1)
+    assert int(visits.min()) >= 1
+    assert bool((leaf_visits <= visits).all())
+    assert bool((groups >= leaf_visits).all())
+    assert int(tests[i2 >= 0].min()) >= 1
+    assert bool((tests <= 8 * groups).all())
+
+
+_VARIANTS = [("sign", 0), ("near", 1), ("near", 2), ("sign", 1)]
+
+
+def _jax_variant(c, **kw):
+    return traverse_pallas(*c["packed"], jnp.asarray(c["o"]),
+                           jnp.asarray(c["d"]), depth=c["depth"],
+                           max_leaf=c["max_leaf"], interpret=True,
+                           stream=c["stream"], **kw)
+
+
+def _any_hit_inputs(c):
+    n = c["o"].shape[0]
+    rng = np.random.default_rng(5)
+    closest = np.asarray(c["jax"][0]).astype(np.int32)
+    exclude = np.where(rng.uniform(size=n) < 0.8, closest, -1).astype(
+        np.int32)
+    t_max = np.where(rng.uniform(size=n) < 0.5, np.inf,
+                     rng.uniform(0.05, 4.0, n)).astype(np.float32)
+    return exclude, t_max
+
+
+def _check_variant(c, order, leaf_aabb):
+    """The plain version under (order, leaf_aabb) against the Pallas
+    kernel under the same flags: closest-hit ids up to ties and t to
+    2e-6, the any-hit flag on every ray."""
+    o, d = torch.tensor(c["o"]), torch.tensor(c["d"])
+    ji, jt = (np.asarray(a) for a in _jax_variant(
+        c, order=order, leaf_aabb=leaf_aabb))
+    ti, tt_ = (a.numpy() for a in tt.traverse(
+        c["tables"], o, d, c["depth"], order=order, leaf_aabb=leaf_aabb))
+    np.testing.assert_array_equal(ti >= 0, ji >= 0)
+    diff = np.nonzero(ti != ji)[0]
+    if diff.size:
+        t_alt = _tri_t(c["tables"], ji[diff], c["o"][diff], c["d"][diff])
+        np.testing.assert_allclose(t_alt, tt_[diff], rtol=1e-6)
+    hit = ji >= 0
+    np.testing.assert_allclose(tt_[hit], jt[hit], rtol=2e-6)
+    exclude, t_max = _any_hit_inputs(c)
+    ja, _ = _jax_variant(c, order=order, leaf_aabb=leaf_aabb,
+                         exclude=jnp.asarray(exclude),
+                         t_max=jnp.asarray(t_max))
+    ta, _ = tt.traverse(c["tables"], o, d, c["depth"], torch.tensor(exclude),
+                        torch.tensor(t_max), order=order,
+                        leaf_aabb=leaf_aabb)
+    flag = np.asarray(ja) >= 0
+    assert 0 < flag.sum() < flag.size
+    np.testing.assert_array_equal(ta.numpy() >= 0, flag)
+
+
+@pytest.mark.parametrize("order,leaf_aabb", _VARIANTS)
+def test_variants_match_jax_pallas(case, order, leaf_aabb):
+    _check_variant(case, order, leaf_aabb)
+
+
+def test_stream_variant_matches_jax_pallas(stream_case):
+    _check_variant(stream_case, "sign", 2)
+
+
+@pytest.mark.parametrize("order", tt.ORDERS)
+def test_leaf_aabb_is_a_pure_cull(case, order):
+    """leaf_aabb 1 and 2 give exactly the ids and t of 0, in closest-hit
+    and in any-hit mode, visit what 0 visits, and test fewer tris."""
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    exclude, t_max = map(torch.tensor, _any_hit_inputs(case))
+    for query in ((), (exclude, t_max)):
+        i0, t0, c0 = tt.traverse_plain(case["tables"], o, d, case["depth"],
+                                       *query, order=order, count_steps=True)
+        for leaf_aabb in (1, 2):
+            i1, t1, c1 = tt.traverse_plain(
+                case["tables"], o, d, case["depth"], *query, order=order,
+                leaf_aabb=leaf_aabb, count_steps=True)
+            assert torch.equal(i0, i1) and torch.equal(t0, t1)
+            assert torch.equal(c0[:, :3], c1[:, :3])
+            assert bool((c1[:, 3] <= c0[:, 3]).all())
+            assert int(c1[:, 3].sum()) < int(c0[:, 3].sum())
+
+
+def test_sign_order_gives_the_near_order_hits(case):
+    """The two orders find the same hits, equal-t ties apart (they may
+    visit other nodes on the way)."""
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    i0, t0, c0 = tt.traverse_plain(case["tables"], o, d, case["depth"],
+                                   count_steps=True)
+    i1, t1, c1 = tt.traverse_plain(case["tables"], o, d, case["depth"],
+                                   order="sign", count_steps=True)
+    assert torch.equal(t0, t1)
+    diff = (i0 != i1).nonzero()[:, 0].numpy()
+    if diff.size:
+        t_alt = _tri_t(case["tables"], i1.numpy()[diff], case["o"][diff],
+                       case["d"][diff])
+        np.testing.assert_allclose(t_alt, t0.numpy()[diff], rtol=1e-6)
+    assert torch.equal(c0[:, 0] >= 1, c1[:, 0] >= 1)
+
+
+@pytest.mark.parametrize("order,leaf_aabb", [("near", 0), ("sign", 1)])
+def test_counters_match_jax_count_steps(case, order, leaf_aabb):
+    """A tile of 1024 copies of one ray: the Pallas kernel's per-tile
+    node visits (row 0), leaf rows (row 1) and leaf-parent visits (row 2)
+    are that ray's, and equal the plain version's visits, 8-aligned
+    groups and leaf-parent visits.  The fourth counter differs by
+    design: the TPU kernel tests all 8 slots of a row, the per-ray walk
+    only those of the leaf."""
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    _, _, cnt = tt.traverse_plain(case["tables"], o, d, case["depth"],
+                                  order=order, leaf_aabb=leaf_aabb,
+                                  count_steps=True)
+    busiest = int(cnt[:, 0].argmax())
+    assert int(cnt[busiest, 1]) >= 2
+    tile = dict(case, o=np.repeat(case["o"][busiest:busiest + 1], 1024, 0),
+                d=np.repeat(case["d"][busiest:busiest + 1], 1024, 0))
+    _, _, jc = _jax_variant(tile, order=order, leaf_aabb=leaf_aabb, sub=8,
+                            count_steps=True)
+    jc = np.asarray(jc)
+    assert jc.shape == (1, 4)
+    visits, leaf_visits, groups, tests = cnt[busiest].tolist()
+    assert (visits, groups, leaf_visits) == tuple(jc[0, :3])
+    assert tests <= jc[0, 3]
+
+
+@pytest.mark.parametrize("leaf_mode", ["noscan", "skip"])
+def test_probes_match_jax_pallas(case, leaf_mode):
+    """The timing probes miss every ray, as the Pallas kernel's do, and
+    walk what it walks (one ray against a tile of its copies)."""
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    ti, tt_, cnt = tt.traverse(case["tables"], o, d, case["depth"],
+                               leaf_mode=leaf_mode, count_steps=True)
+    ji, jt = _jax_variant(case, leaf_mode=leaf_mode)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tt_.numpy(), np.asarray(jt))
+    assert bool((ti == -1).all()) and bool(torch.isinf(tt_).all())
+    assert int(cnt[:, 3].sum()) == 0
+    assert (int(cnt[:, 1].sum()) == 0) == (leaf_mode == "skip")
+    busiest = int(cnt[:, 0].argmax())
+    tile = dict(case, o=np.repeat(case["o"][busiest:busiest + 1], 1024, 0),
+                d=np.repeat(case["d"][busiest:busiest + 1], 1024, 0))
+    _, _, jc = _jax_variant(tile, leaf_mode=leaf_mode, sub=8,
+                            count_steps=True)
+    visits, leaf_visits, groups, _ = cnt[busiest].tolist()
+    assert (visits, groups, leaf_visits) == tuple(np.asarray(jc)[0, :3])
+
+
+def test_ordering_codes_equal_the_pallas_lane_12(case):
+    """pack_tables' ``order`` table holds, for every interior node, the
+    code pack_bvh_for_pallas writes into lane 12 of the node's entry."""
+    nodes = np.asarray(case["packed"][0])
+    codes = nodes.reshape(-1, 8, 16)[:, :, 12].reshape(-1)
+    order = case["tables"]["order"].numpy()
+    depth = case["depth"]
+    from elevenrender_tpu_torch.ops.bvh import preorder_indices
+    interior = np.concatenate([preorder_indices(depth)[k]
+                               for k in range(depth)])
+    assert interior.size == (1 << depth) - 1
+    np.testing.assert_array_equal(order[interior],
+                                  codes[interior].astype(np.int32))
+    assert set(np.unique(order[interior])) <= set(range(6))
+    assert len(np.unique(order[interior])) >= 2
+
+
+def test_group_boxes_hold_their_tris(case):
+    tables = case["tables"]
+    tris = tables["tris"].numpy()
+    corners = np.stack([tris[:, 0:3], tris[:, 0:3] + tris[:, 4:7],
+                        tris[:, 0:3] + tris[:, 8:11]], axis=1)
+    for name, size in (("groups8", 8), ("groups4", 4)):
+        box = tables[name].numpy()
+        assert box.shape == (-(-tris.shape[0] // size), 8)
+        g = np.arange(tris.shape[0]) // size
+        assert (corners.min(axis=1) >= box[g, 0:3]).all()
+        assert (corners.max(axis=1) <= box[g, 4:7]).all()
+
+
+@pytest.mark.parametrize("bad", [dict(order="far"), dict(leaf_aabb=3),
+                                 dict(leaf_mode="fast")])
+def test_unknown_variant_raises(case, bad):
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    for fn in (tt.traverse, tt.traverse_plain):
+        with pytest.raises(ValueError):
+            fn(case["tables"], o, d, case["depth"], **bad)
+    with pytest.raises(ValueError):
+        tt._launch(case["tables"], o, d, case["depth"], None, None, **bad)
 
 
 def test_brute_force_matches_jax(case):
