@@ -66,7 +66,6 @@ HBM_RATE = 3.35e12
 # and per triangle test 46 arithmetic ops and 9 compares.
 OPS_PER_VISIT = 50
 OPS_PER_TEST = 55
-OPS_PER_GROUP_BOX = 25  # one slab test (leaf_aabb 1 and 2)
 CONFIG5_TRIS = 999698
 
 
@@ -121,6 +120,18 @@ def main():
                 print(f"[build] {name}: {line.strip()}")
 
     errs = {"closest": [], "any_hit": []}
+    # Launches by variant key (order, leaf_aabb, leaf_mode, count_steps),
+    # summed over the driven paths (phases 4, 8 and 14): each adds what
+    # the wrapper counted between its own reset and its end.
+    path_launches = {}
+    DEFAULT = ("near", 0, "full", False)
+
+    def add_path_launches(label, expected):
+        if tr.variant_launches != expected:
+            fail(f"{label}: launches by variant {tr.variant_launches}, "
+                 f"expected {expected}")
+        for k, v in tr.variant_launches.items():
+            path_launches[k] = path_launches.get(k, 0) + v
 
     def check(tables, depth, label, o, d, exclude=None, t_max=None,
               plain=None):
@@ -218,6 +229,7 @@ def main():
         torch.cuda.synchronize()
         dt = time.time() - t0
         launches, any_hit = tr.launches, tr.any_hit_launches
+        add_path_launches(label, {DEFAULT: 10 * n_timed})
         closest = launches - any_hit
         rays_per_sample = 2 * cfg.max_bounces * res * res
         beauty = renderer.get_pass("beauty").reshape(res, res, 4)[..., :3]
@@ -271,15 +283,15 @@ def main():
 
     def bound_of(tables, counts, any_hit, leaf_aabb=0):
         """The least time the card could take for one launch, from the
-        kernel's per-ray counters [N, 4]: fp32 operations (visits, tri
-        tests and, with leaf_aabb, at most one box test per group of 8
-        or two per group with leaf_aabb=2) over the fp32 peak, or every
-        table the variant reads plus rays in and results out over the
-        memory rate."""
+        kernel's per-ray counters [N, 4]: fp32 operations (visits and
+        tri tests) over the fp32 peak, or every table the variant reads
+        plus rays in and results out over the memory rate.  The group
+        box tests of leaf_aabb 1 and 2 are left out: the kernel counts
+        the 8-aligned groups a ray touches, not the boxes it tests, and
+        a bound may count too little work but never too much."""
         n = counts.shape[0]
-        visits, _, groups, tests = (int(c) for c in counts.sum(dim=0))
-        ops = (visits * OPS_PER_VISIT + tests * OPS_PER_TEST
-               + groups * leaf_aabb * OPS_PER_GROUP_BOX)
+        visits, _, _, tests = (int(c) for c in counts.sum(dim=0))
+        ops = visits * OPS_PER_VISIT + tests * OPS_PER_TEST
         read = ["boxes", "leaves", "tris"]
         if leaf_aabb:
             read.append({1: "groups8", 2: "groups4"}[leaf_aabb])
@@ -562,8 +574,9 @@ def main():
 
     def gradient_at_full_width(cfg, ir_):
         """fwd_bwd_step_accum at the main path's width, 8 samples, default
-        RenderConfig (material_fetch="mm_bwd", replayed pass 2); then one
-        sample under every other (order, leaf_aabb) variant.  Returns
+        RenderConfig (material_fetch="mm_bwd", replayed pass 2); then the
+        accumulator's two passes again, each timed alone; then one sample
+        under every other (order, leaf_aabb) variant.  Returns
         {(order, leaf_aabb): (closest-hit, any-hit) launches}."""
         n = 8
         res = cfg.x_res
@@ -572,41 +585,58 @@ def main():
         target = make_target(cfg, ir_, "cuda")
         grad_mod.fwd_bwd_step_accum(cfg, ir_, target, 1)  # warm-up
         torch.cuda.synchronize()
-        # Pass 1 alone: forward-only samples that record their traces.
-        t0 = time.time()
-        with torch.no_grad():
-            st = integrator.init_state(cfg)
-            for _ in range(n):
-                st, _ = integrator.render_sample(cfg, ir_, st, record=True)
-        torch.cuda.synchronize()
-        pass1 = time.time() - t0
-        del st
         torch.cuda.reset_peak_memory_stats()
         tr.reset_counts()
         t0 = time.time()
         loss, grads = grad_mod.fwd_bwd_step_accum(cfg, ir_, target, n)
         torch.cuda.synchronize()
         dt = time.time() - t0
-        launches = {("near", 0): (tr.launches - tr.any_hit_launches,
-                                  tr.any_hit_launches)}
+        add_path_launches("gradient path", {DEFAULT: 10 * n})
+        total, any_hit = tr.launches, tr.any_hit_launches
+        launches = {("near", 0): (total - any_hit, any_hit)}
         peak = torch.cuda.max_memory_allocated() / 2**20
         g = grads["materials"]
         finite = all(bool(torch.isfinite(v).all()) for v in g.values())
         rays = 2 * cfg.max_bounces * res * res * n
+        # The accumulator's own two passes, each timed alone.
+        params = {"materials": grad_mod.float_subtree(ir_["materials"])}
+        dev = target.device
+        tr.reset_counts()
+        t0 = time.time()
+        _, seed, caches = grad_mod._accum_fwd(cfg, ir_, params, target, n,
+                                              True, dev)
+        torch.cuda.synchronize()
+        pass1 = time.time() - t0
+        pass1_launches = tr.launches
+        t0 = time.time()
+        again = grad_mod._accum_bwd(cfg, ir_, params, seed, caches, n, dev)
+        torch.cuda.synchronize()
+        pass2 = time.time() - t0
+        pass2_launches = tr.launches - pass1_launches
+        del seed, caches
         print(f"[gradient] fwd_bwd_step_accum {res}x{res}, "
               f"{cfg.max_bounces} bounces, {n} samples, material_fetch="
               f"{cfg.material_fetch}: {dt:.3f} s per fwd+bwd, "
-              f"{rays / dt:.4g} rays/s; pass 1 {pass1 / n * 1e3:.1f} "
-              f"ms/sample (timed alone), pass 2 "
-              f"{(dt - pass1) / n * 1e3:.1f} ms/sample (the rest); peak "
-              f"memory {peak:.0f} MiB; remat_bounces not needed; "
-              f"{tr.launches} kernel launches, all in pass 1")
+              f"{rays / dt:.4g} rays/s; its two passes run again, each "
+              f"timed alone: pass 1 {pass1 / n * 1e3:.1f} ms/sample, "
+              f"{pass1_launches} kernel launches; pass 2 "
+              f"{pass2 / n * 1e3:.1f} ms/sample, {pass2_launches} kernel "
+              f"launches; peak memory {peak:.0f} MiB; remat_bounces not "
+              f"needed")
         print(f"[gradient] loss {float(loss):.8f}, albedo gradient "
               f"{[round(x, 6) for x in g['albedo'].flatten().tolist()]}, "
               f"finite {finite}")
-        if tr.launches != 10 * n:
-            fail(f"gradient path: {tr.launches} kernel launches, expected "
-                 f"{10 * n} (pass 1 only)")
+        if total != 10 * n or pass1_launches != 10 * n or pass2_launches:
+            fail(f"gradient path: {total} kernel launches ({pass1_launches} "
+                 f"in pass 1 alone, {pass2_launches} in pass 2 alone), "
+                 f"expected {10 * n} (pass 1 only)")
+        # The same sums, though atomic adds may take another order: each
+        # leaf within 1e-5 of its largest entry.
+        for k, v in g.items():
+            gap = float((again["materials"][k] - v).abs().max())
+            if not gap <= 1e-5 * float(v.abs().max()):
+                fail(f"gradient path: leaf {k} of the two passes run alone "
+                     f"differs from fwd_bwd_step_accum's by {gap:.3g}")
         if not (finite and bool(torch.isfinite(loss)) and float(loss) > 0
                 and float(g["albedo"].abs().sum()) > 0):
             fail("gradient path: loss or gradients not finite and non-zero")
@@ -618,17 +648,20 @@ def main():
                 cfg.replace(trace_order=order, leaf_aabb=leaf_aabb), ir_,
                 target, 1)
             key = (order, leaf_aabb, "full", False)
-            if tr.variant_launches != {key: 10}:
-                fail(f"gradient path under {key}: launches "
-                     f"{tr.variant_launches}")
+            add_path_launches(f"gradient path under {key}", {key: 10})
             launches[(order, leaf_aabb)] = (
                 tr.launches - tr.any_hit_launches, tr.any_hit_launches)
-            # Same hits but for equal-t ties: the loss to 1e-4 relative.
+            # Same hits but for equal-t ties: the loss to 1e-4 relative,
+            # the albedo gradient to 1e-4 of its largest entry.
             rel = abs(float(v_loss) - float(base_loss)) / float(base_loss)
             if not rel <= 1e-4:
                 fail(f"gradient path under {key}: loss differs by {rel:.3g}")
+            base_albedo = base_grads["materials"]["albedo"]
             gap = float((v_grads["materials"]["albedo"]
-                         - base_grads["materials"]["albedo"]).abs().max())
+                         - base_albedo).abs().max())
+            if not gap <= 1e-4 * float(base_albedo.abs().max()):
+                fail(f"gradient path under {key}: albedo gradient differs "
+                     f"by {gap:.3g}")
             print(f"[gradient] trace_order={order} leaf_aabb={leaf_aabb}, 1 "
                   f"sample: loss {float(v_loss):.8f} (default "
                   f"{float(base_loss):.8f}), albedo gradient differs by "
@@ -786,8 +819,9 @@ def main():
                 {"counters_per_ray": t["counters"],
                  "ms_config5": vt5[(order, leaf_aabb, "full", False,
                                     shape)]["ms"]}))
-    # Row 4's instruments run on no render path (launches 0 there): the
-    # counters feed the bounds above, the probes split a launch's time.
+    # Row 4's instruments belong on no render path: the counters feed the
+    # bounds above, the probes split a launch's time.  Their launches are
+    # what the wrapper counted over the driven paths, and must be 0.
     instruments = []
     for leaf_mode, count in (("full", True), ("noscan", False),
                              ("skip", False)):
@@ -796,13 +830,21 @@ def main():
             instruments.append(entry(
                 f"bvh_traverse {shape}, "
                 + ("count_steps" if count else f"leaf_mode={leaf_mode}"),
-                row4, 0, t["err"], t,
+                row4, path_launches.get(("near", 0, leaf_mode, count), 0),
+                t["err"], t,
                 {"counters_per_ray": t["counters"],
                  "ms_config5": vt5[("near", 0, leaf_mode, count,
                                     shape)]["ms"]}))
     for e in kern:
         if e["launches"] < 1:
             fail(f"kernel {e['name']!r} was launched no time on its path")
+    for e in instruments:
+        if e["launches"]:
+            fail(f"instrument {e['name']!r} was launched {e['launches']} "
+                 f"times on a render path")
+    print(f"[launches] by variant (order, leaf_aabb, leaf_mode, "
+          f"count_steps) over the driven paths: "
+          f"{ {str(k): v for k, v in sorted(path_launches.items())} }")
     print(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kern, "instruments": instruments}))
     print(json.dumps({"ok": True, "device": {

@@ -102,33 +102,16 @@ def _profile_grad(config, ir, args) -> int:
           f"loss {float(loss):.6f}, {traverse.launches} traversal launches, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
-    mats = grad.float_subtree(ir["materials"])
-    tree, flat = grad._as_parameters({"materials": mats})
-    merged = grad._merge(ir, tree)
-    npix = config.x_res * config.y_res
-    seed = torch.full((npix, 3), 1.0 / (3 * npix), device=target.device)
+    # The accumulator's own two passes, each called as it calls them.
+    params = {"materials": grad.float_subtree(ir["materials"])}
+    dev = target.device
 
     def pass1():
-        """As the accumulator runs it: forward only, traces recorded."""
-        caches = []
-        with torch.no_grad():
-            state = integrator.init_state(config)
-            for _ in range(n):
-                state, trace = integrator.render_sample(config, ir, state,
-                                                        record=True)
-                caches.append(trace)
-        return caches
+        return grad._accum_fwd(config, ir, params, target, n, True, dev)
 
-    def pass2(caches):
-        """As the accumulator runs it: replay, one VJP per sample."""
-        rng = integrator.init_state(config)["rng"]
-        for s in range(n):
-            with torch.enable_grad():
-                out, rng = integrator.sample_radiance(
-                    config, merged, rng, npix, trace_cache=caches[s])
-                torch.autograd.grad(out["light"], flat,
-                                    grad_outputs=seed * out["ok"][:, None],
-                                    allow_unused=True)
+    def pass2(fwd):
+        _, seed, caches = fwd
+        return grad._accum_bwd(config, ir, params, seed, caches, n, dev)
 
     def timed(fn, *a):
         torch.cuda.synchronize()
@@ -137,12 +120,12 @@ def _profile_grad(config, ir, args) -> int:
         torch.cuda.synchronize()
         return res, (time.time() - t0) / n * 1e3
 
-    caches, plain1 = timed(pass1)
-    _, plain2 = timed(pass2, caches)
+    fwd, plain1 = timed(pass1)
+    _, plain2 = timed(pass2, fwd)
     with profile(activities=acts) as prof1:
-        caches, wall1 = timed(pass1)
+        fwd, wall1 = timed(pass1)
     with profile(activities=acts) as prof2:
-        _, wall2 = timed(pass2, caches)
+        _, wall2 = timed(pass2, fwd)
     ok1 = _report(prof1, "pass 1 (forward, record)", wall1, n, args.top,
                   plain1)
     ok2 = _report(prof2, "pass 2 (replay, forward + backward)", wall2, n,

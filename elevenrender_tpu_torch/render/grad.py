@@ -24,8 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
-from .integrator import (BEAUTY, init_state,
-                         recommended_samples_per_dispatch, render_sample,
+from .integrator import (BEAUTY, init_state, render_sample,
                          sample_radiance)
 
 
@@ -112,6 +111,52 @@ def fwd_bwd_step(config, ir, target, n_samples: int = 1, device="cuda"):
                                 device)
 
 
+def _accum_fwd(config, ir, params, target, n_samples: int,
+               cache_traces: bool, dev):
+    """Pass 1 of the accumulator: n forward-only samples.  Returns (loss,
+    seed [H*W, 3]: dL/dimg folded with the progressive average's
+    1/count, the recorded traces, one per sample, or [])."""
+    caches = []
+    with torch.no_grad():
+        merged = _merge(ir, params)
+        state = init_state(config, dev)
+        for _ in range(n_samples):
+            if cache_traces:
+                state, trace = render_sample(config, merged, state,
+                                             record=True, device=dev)
+                caches.append(trace)
+            else:
+                state = render_sample(config, merged, state, device=dev)
+        img = state["passes"][BEAUTY, :, :3]
+        count = torch.clamp(state["samples"].to(torch.float32), min=1.0)
+        loss = torch.mean((img - target) ** 2)
+        seed = (2.0 * (img - target) / img.numel()) / count[:, None]
+    return loss, seed, caches
+
+
+def _accum_bwd(config, ir, params, seed, caches, n_samples: int, dev):
+    """Pass 2 of the accumulator: each sample again from pass 1's RNG
+    stream (replayed from ``caches[s]``, or traced again when ``caches``
+    is empty), one vector-Jacobian product at a time, summed into
+    gradients shaped like ``params``."""
+    tree, flat = _as_parameters(params)
+    grads = [torch.zeros_like(p) for p in flat]
+    rng = init_state(config, dev)["rng"]
+    merged = _merge(ir, tree)
+    for s in range(n_samples):
+        with torch.enable_grad():
+            out, rng = sample_radiance(
+                config, merged, rng, seed.shape[0],
+                trace_cache=caches[s] if caches else None)
+            got = torch.autograd.grad(
+                out["light"], flat, grad_outputs=seed * out["ok"][:, None],
+                allow_unused=True)
+        for acc, g in zip(grads, got):
+            if g is not None:
+                acc.add_(g)
+    return _rebuild(params, iter(grads))
+
+
 def render_loss_and_grad_accum(config, ir, params, target, n_samples: int,
                                chunk: int | None = None,
                                cache_traces: bool = True, device="cuda"):
@@ -136,57 +181,18 @@ def render_loss_and_grad_accum(config, ir, params, target, n_samples: int,
     either way.  Turn it off when device memory is too tight for the
     record; pass 2 then traces every sample again.
 
-    ``chunk``: the JAX package's samples per jitted dispatch (default:
-    ``recommended_samples_per_dispatch``).  An eager program has no
-    dispatch to bound, so here it is checked and changes nothing; it is
-    kept so both packages take the same call.
+    ``chunk`` is ignored.  In the JAX package it is the number of samples
+    per jitted dispatch; an eager program has no dispatch to bound, and
+    the argument is kept only so both packages take the same call.
 
     Native mode only: compat's average starts its count at 1 and dims on
     purpose, and gradients aim at the unbiased native estimate."""
     if config.compat:
         raise ValueError("accumulated gradients are native-mode only")
     dev = resolve_device(device)
-    if chunk is None:
-        chunk = recommended_samples_per_dispatch(config, ir)
-    if chunk < 1:
-        raise ValueError(f"chunk {chunk}: expected at least 1")
-    tree, flat = _as_parameters(params)
-
-    # ---- pass 1: forward only ------------------------------------------
-    caches = []
-    with torch.no_grad():
-        merged = _merge(ir, params)
-        state = init_state(config, dev)
-        for _ in range(n_samples):
-            if cache_traces:
-                state, trace = render_sample(config, merged, state,
-                                             record=True, device=dev)
-                caches.append(trace)
-            else:
-                state = render_sample(config, merged, state, device=dev)
-        img = state["passes"][BEAUTY, :, :3]
-        count = torch.clamp(state["samples"].to(torch.float32), min=1.0)
-        loss = torch.mean((img - target) ** 2)
-        # dL/dimg, folded with the progressive average's 1/count.
-        seed = (2.0 * (img - target) / img.numel()) / count[:, None]
-
-    # ---- pass 2: one sample's VJP at a time ----------------------------
-    grads = [torch.zeros_like(p) for p in flat]
-    rng = init_state(config, dev)["rng"]
-    npix = seed.shape[0]
-    merged = _merge(ir, tree)
-    for s in range(n_samples):
-        with torch.enable_grad():
-            out, rng = sample_radiance(
-                config, merged, rng, npix,
-                trace_cache=caches[s] if cache_traces else None)
-            got = torch.autograd.grad(
-                out["light"], flat, grad_outputs=seed * out["ok"][:, None],
-                allow_unused=True)
-        for acc, g in zip(grads, got):
-            if g is not None:
-                acc.add_(g)
-    return loss, _rebuild(params, iter(grads))
+    loss, seed, caches = _accum_fwd(config, ir, params, target, n_samples,
+                                    cache_traces, dev)
+    return loss, _accum_bwd(config, ir, params, seed, caches, n_samples, dev)
 
 
 def fwd_bwd_step_accum(config, ir, target, n_samples: int,

@@ -87,15 +87,18 @@ def resolve_trace_mode(config, ir) -> str:
 
 
 def recommended_samples_per_dispatch(config, ir, default: int = 8) -> int:
-    """Samples per host-loop chunk of the gradient accumulator.
+    """The JAX package's samples per jitted dispatch, for callers that
+    size their own loops by it.
 
     The JAX package bounds this by scene scale, because one jitted
     dispatch there must stay inside its runtime's wall-time envelope.
     PyTorch runs eagerly, one kernel at a time, so no scene size forces a
-    smaller chunk: the port keeps the two overrides and otherwise returns
-    ``default``.  ``config.samples_per_dispatch > 0`` wins over the
-    default, and the ``ELEVENRT_SAMPLES_PER_DISPATCH`` environment
-    variable wins over both.  Results are the same at any chunking."""
+    smaller chunk and nothing in the port reads the value (the gradient
+    accumulator ignores its ``chunk``): the function keeps the two
+    overrides and otherwise returns ``default``.
+    ``config.samples_per_dispatch > 0`` wins over the default, and the
+    ``ELEVENRT_SAMPLES_PER_DISPATCH`` environment variable wins over
+    both."""
     env = os.environ.get("ELEVENRT_SAMPLES_PER_DISPATCH")
     if env:
         try:

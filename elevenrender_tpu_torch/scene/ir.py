@@ -78,8 +78,8 @@ class RenderConfig:
     sort_dir_bits: int = 3
     sort_impl: str = "argsort"     # "counting" is not ported yet: raises
     packed_sort_io: bool = True    # TPU gather layout; the port gathers
-    # > 0 overrides recommended_samples_per_dispatch (the accumulator's
-    # chunk; it bounds nothing in an eager program).
+    # > 0 overrides recommended_samples_per_dispatch, the JAX package's
+    # samples per jitted dispatch; no code path of the port depends on it.
     samples_per_dispatch: int = 0
     # Dedicated shadow-ray sort keyed on the NEE gate (native mode).
     shadow_sort: bool = True
