@@ -31,11 +31,12 @@ result line is printed):
     with its times and bound, as in phase 6;
 11. the kernel's variants (order near/sign x leaf_aabb 0/1/2, the
     noscan/skip probes, count_steps) against the plain version under the
-    same flags, at 65,522 and at 999,698 tris, on 65,536 camera rays,
-    65,536 random rays and the recorded bounce-1 and shadow launches,
-    closest-hit and any-hit: ids equal, t bit-equal, the four per-ray
-    counters equal; leaf_aabb is a pure cull; sign gives near's hits up
-    to equal-t ties;
+    same flags: at 65,522 tris on 65,536 camera rays, 65,536 random rays
+    (each closest-hit and any-hit) and the recorded bounce-1 and shadow
+    launches; at 999,698 tris on the random rays closest-hit and the two
+    recorded launches: ids equal, t bit-equal, the four per-ray counters
+    equal; leaf_aabb is a pure cull; sign gives near's hits up to equal-t
+    ties;
 12. the variants timed at both paths' recorded shapes beside the default
     kernel, their mean counters per ray, and each bound from the
     kernel's own counters;
@@ -47,25 +48,33 @@ result line is printed):
     bounces, 8 samples on the 65,522-tri scene (pass 1 records, pass 2
     replays), its time, rays/s and peak memory; then one sample under
     each other (order, leaf_aabb) variant: the same loss.
+15. the frontier-K walk (K = 2, 4, 8 closest-hit, K = 4 any-hit too) and
+    the 8-wide walk against their plain versions at 65,522 and 999,698
+    tris, on 65,536 camera rays, 65,536 random rays and a 65,536-ray
+    strided subset of the recorded bounce-1 and shadow launches, and on
+    the main path's full recorded launches: ids equal, t bit-equal,
+    counters equal, the same deepest stack, no push refused;
+16. the traversal A/B sweep (elevenrender_tpu_torch/sweep_traverse.py) at
+    full width, 1,048,576 rays per launch, on both scenes: coherent
+    camera rays, those shuffled and Morton-sorted, and the recorded
+    bounce-1 and shadow launches; every walk held to the binary kernel
+    (the same rays hit, t bit-equal but for counted near ties within 1e-5
+    relative, ids up to equal-t ties, the any-hit flag exact), timed in
+    turns beside it, with its counters and bound;
+17. sort_impl="counting": counting_order on the card equals it on the CPU
+    for the recorded bounce-1 rays' keys, and Renderer.step at 1024x1024,
+    5 bounces renders with it (10 launches per sample), timed in turns
+    beside sort_impl="argsort".
 The last two lines are one JSON object with the kernels' numbers and one
 with the result: {"ok": true, "device": {...}}.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
 
-# fp32 peak outside the tensor cores and HBM rate of one H100 SXM
-# (NVIDIA's data sheet).
-FP32_PEAK = 67e12
-HBM_RATE = 3.35e12
-# fp32 operations per unit of traversal work, as the kernel spends them
-# (csrc/bvh_traverse.cu; a compare or select counts as one): two slab
-# tests per interior visit (6 sub, 6 mul, 10 min/max, 3 compares each),
-# and per triangle test 46 arithmetic ops and 9 compares.
-OPS_PER_VISIT = 50
-OPS_PER_TEST = 55
 CONFIG5_TRIS = 999698
 
 
@@ -82,7 +91,10 @@ def main():
     import numpy as np
 
     from elevenrender_tpu_torch import kernels
+    from elevenrender_tpu_torch import sweep_traverse as sweep
     from elevenrender_tpu_torch.convert import ir_to
+    from elevenrender_tpu_torch.experiments import bvh_wide
+    from elevenrender_tpu_torch.ops import sort as sort_ops
     from elevenrender_tpu_torch.ops import traverse as tr
     from elevenrender_tpu_torch.ops.camera import camera_ray
     from elevenrender_tpu_torch.render import grad as grad_mod
@@ -114,10 +126,37 @@ def main():
     kernels.build_all()
     print(f"[build] {time.time() - t0:.1f} s for {len(kernels.LIBRARIES)} "
           f"librar{'y' if len(kernels.LIBRARIES) == 1 else 'ies'}")
+    # library -> {template arguments as mangled: (registers, stack bytes,
+    # spill store bytes, spill load bytes)}, from ptxas -v.
+    ptxas = {}
     for name, info in kernels.build_info.items():
+        entry = None
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and entry:
+                ptxas.setdefault(name, {})[entry] = [0, *map(int, m.groups())]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                ptxas.setdefault(name, {}).setdefault(entry, [0, 0, 0, 0])[
+                    0] = int(m.group(1))
+        for entry, (regs, stack, st, ld) in ptxas.get(name, {}).items():
+            print(f"[build] {name}: {entry}: {regs} registers, {stack} bytes "
+                  f"stack frame, {st} / {ld} bytes spill stores / loads")
+    if set(ptxas) != set(kernels.LIBRARIES):
+        fail(f"no ptxas report for {set(kernels.LIBRARIES) - set(ptxas)}")
+
+    def ptxas_of(lib, pattern):
+        """(registers, stack, spill stores, spill loads) of the one entry
+        function of ``lib`` whose mangled name holds ``pattern``."""
+        found = [v for k, v in ptxas[lib].items() if pattern in k]
+        if len(found) != 1:
+            fail(f"{lib}: {len(found)} entry functions match {pattern!r}")
+        return dict(zip(("registers", "stack_bytes", "spill_store_bytes",
+                         "spill_load_bytes"), found[0]))
 
     errs = {"closest": [], "any_hit": []}
     # Launches by variant key (order, leaf_aabb, leaf_mode, count_steps),
@@ -268,41 +307,20 @@ def main():
 
     def time_kernel(tables, depth, o, d, ex, tm, reps=20, **variant):
         """Median of ``reps`` launches, each between two CUDA events."""
-        for _ in range(3):
-            tr._launch(tables, o, d, depth, ex, tm, **variant)
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            tr._launch(tables, o, d, depth, ex, tm, **variant)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
+        return sweep.time_in_turns(
+            {"kernel": lambda: tr._launch(tables, o, d, depth, ex, tm,
+                                          **variant)}, reps, True)["kernel"]
 
     def bound_of(tables, counts, any_hit, leaf_aabb=0):
-        """The least time the card could take for one launch, from the
-        kernel's per-ray counters [N, 4]: fp32 operations (visits and
-        tri tests) over the fp32 peak, or every table the variant reads
-        plus rays in and results out over the memory rate.  The group
-        box tests of leaf_aabb 1 and 2 are left out: the kernel counts
-        the 8-aligned groups a ray touches, not the boxes it tests, and
-        a bound may count too little work but never too much."""
-        n = counts.shape[0]
-        visits, _, _, tests = (int(c) for c in counts.sum(dim=0))
-        ops = visits * OPS_PER_VISIT + tests * OPS_PER_TEST
+        """sweep_traverse.bound_of for the binary kernel's variants: the
+        tables the variant reads.  The group box tests of leaf_aabb 1 and
+        2 are left out: the kernel counts the 8-aligned groups a ray
+        touches, not the boxes it tests, and a bound may count too little
+        work but never too much."""
         read = ["boxes", "leaves", "tris"]
         if leaf_aabb:
             read.append({1: "groups8", 2: "groups4"}[leaf_aabb])
-        nbytes = (sum(tables[k].numel() * tables[k].element_size()
-                      for k in read)
-                  + n * (24 + 8) + (n * 8 if any_hit else 0))
-        ops_ms = ops / FP32_PEAK * 1e3
-        bytes_ms = nbytes / HBM_RATE * 1e3
-        return dict(bound_ms=max(ops_ms, bytes_ms),
-                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                    visits=visits, tests=tests, ops=ops, bytes=nbytes)
+        return sweep.bound_of([tables[k] for k in read], counts, any_hit)
 
     def timing_at_recorded_shapes(label, cfg, ir, depth):
         """Records the first four launches of one sample (bounce 0 and 1,
@@ -311,23 +329,7 @@ def main():
         it against its plain version there, and times the plain
         version."""
         tables = ir["kernel"]
-        calls = []
-        launch = tr.traverse
-
-        def record(tables_, o, d, depth_, exclude=None, t_max=None, **kw):
-            if len(calls) < 4:
-                calls.append((o.clone(), d.clone(),
-                              None if exclude is None else exclude.clone(),
-                              None if t_max is None else t_max.clone()))
-            return launch(tables_, o, d, depth_, exclude, t_max, **kw)
-
-        tr.traverse = record
-        try:
-            Renderer(cfg, ir).step(1)
-        finally:
-            tr.traverse = launch
-        shapes = {"closest_b0": calls[0], "closest_b1": calls[2],
-                  "any_hit_b1": calls[3]}
+        shapes = sweep.recorded_launches(cfg, ir, "cuda")
         table_bytes = sum(tables[k].numel() * tables[k].element_size()
                           for k in ("boxes", "leaves", "tris"))
         print(f"[timing] {label}: kernel tables {table_bytes / 2**20:.1f} "
@@ -368,18 +370,22 @@ def main():
 
     RENDER_VARIANTS = [(o_, a_) for o_ in tr.ORDERS for a_ in (0, 1, 2)]
 
-    def check_variants(label, tables, depth, rays, recorded):
+    def check_variants(label, tables, depth, rays, recorded, only=None):
         """Every variant against the plain version under the same flags:
         ids equal, t bit-equal (so the any-hit flags too), the four
         counters equal on every ray.  leaf_aabb 1/2 must give exactly
         leaf_aabb 0's ids and t; order="sign" gives order="near"'s up
         to equal-t ties, which are counted.  Returns, by variant at the
         recorded shapes, the plain version's time and the largest
-        |t - t_plain| seen there (0 unless the check above is loosened)."""
+        |t - t_plain| seen there (0 unless the check above is loosened).
+        ``only``: the (name, mode) pairs of ``rays`` to keep; the recorded
+        launches always stay."""
         sets = []
         for name, (o, d, closest, t_max) in rays.items():
             sets.append((name, "closest", o, d, None, None))
             sets.append((name, "any-hit", o, d, closest, t_max))
+        if only is not None:
+            sets = [s_ for s_ in sets if (s_[0], s_[1]) in only]
         sets.append(("recorded bounce 1", "closest",
                      *recorded["closest_b1"]))
         sets.append(("recorded shadow", "any-hit", *recorded["any_hit_b1"]))
@@ -668,6 +674,172 @@ def main():
                   f"{gap:.3g}; 10 launches of this variant")
         return launches
 
+    NEW_WALKS = ([sweep.frontier_name(k) for k in (2, 4, 8)] + [sweep.WIDE])
+    ANY_HIT_WALK = sweep.frontier_name(sweep.ANY_HIT_FRONTIER)
+
+    def plain_of(walk, kernel, o, d, ex, tm):
+        """The plain version of ``kernel`` on the same (card) tensors,
+        with counters; the deepest stack and refused pushes it saw."""
+        if kernel == sweep.WIDE:
+            out = bvh_wide.traverse_wide_plain(
+                walk["wide"]["nodes8"], walk["wide"]["leaf8"],
+                walk["tables"]["tris"], o, d, walk["depth"], count_steps=True)
+            return out, None
+        out = tr.traverse_frontier_plain(
+            walk["tables"], o, d, walk["depth"], int(kernel.split("=")[1]),
+            ex, tm, count_steps=True)
+        return out, dict(tr.frontier_stack)
+
+    def check_new_walks(label, walk, rays, recorded, full):
+        """Rows 5 and 6 against their plain versions: the frontier-K walk
+        (K = 2, 4, 8 closest-hit, K = 4 any-hit) and the 8-wide walk on
+        65,536 camera rays, 65,536 random rays (closest-hit, and any-hit
+        for K = 4) and a 65,536-ray strided subset of the recorded
+        bounce-1 and shadow launches; with ``full`` also on those whole
+        launches, where the plain version is timed.  ids equal, t
+        bit-equal, counters equal on every ray, with and without
+        count_steps; the frontier's deepest stack equal and no push
+        refused.  Returns {(kernel, mode): (plain ms, max |t - t_plain|)}
+        at the full launches."""
+        def strided(rays_):
+            step = max(rays_[0].shape[0] // 65536, 1)
+            return tuple(None if x is None else x[::step].contiguous()
+                         for x in rays_)
+
+        cam, rnd = rays["camera rays"], rays["random rays"]
+        sets = [("camera rays", cam[0], cam[1], None, None),
+                ("random rays", rnd[0], rnd[1], None, None),
+                ("random rays", *rnd),
+                ("recorded bounce 1 subset", *strided(recorded["closest_b1"])),
+                ("recorded shadow subset", *strided(recorded["any_hit_b1"]))]
+        if full:
+            sets += [("recorded bounce 1", *recorded["closest_b1"]),
+                     ("recorded shadow", *recorded["any_hit_b1"])]
+        out = {}
+        checked = 0
+        deepest = {}
+        for name, o, d, ex, tm in sets:
+            mode = "closest" if ex is None else "any-hit"
+            for kernel in (NEW_WALKS if ex is None else [ANY_HIT_WALK]):
+                what = f"{label} {name} {mode} {kernel}"
+                ki, kt, kc = sweep.run(walk, kernel, o, d, ex, tm,
+                                       count_steps=True)
+                k_stack = dict(tr.frontier_stack)
+                ki2, kt2 = sweep.run(walk, kernel, o, d, ex, tm)
+                torch.cuda.synchronize()
+                ta = time.time()
+                (pi, pt, pc), p_stack = plain_of(walk, kernel, o, d, ex, tm)
+                torch.cuda.synchronize()
+                took = (time.time() - ta) * 1e3
+                if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
+                    fail(f"{what}: kernel and plain version differ on "
+                         f"{int(((ki != pi) | (kt != pt)).sum())} rays")
+                if not torch.equal(kc, pc):
+                    fail(f"{what}: counters differ on "
+                         f"{int((kc != pc).any(dim=1).sum())} rays")
+                if not (torch.equal(ki, ki2) and torch.equal(kt, kt2)):
+                    fail(f"{what}: count_steps changed the result")
+                if p_stack is not None:
+                    if k_stack != p_stack:
+                        fail(f"{what}: stack {k_stack} in the kernel, "
+                             f"{p_stack} in the plain version")
+                    if p_stack["refused"]:
+                        fail(f"{what}: {p_stack['refused']} pushes refused")
+                    deepest[kernel] = max(deepest.get(kernel, 0),
+                                          p_stack["deepest"])
+                checked += 1
+                if name in ("recorded bounce 1", "recorded shadow"):
+                    gap = torch.nan_to_num(kt - pt, nan=0.0).abs().max()
+                    out[(kernel, mode)] = (took, float(gap))
+        rows = {k: tr.frontier_stack_rows(int(k.split("=")[1]), walk["depth"])
+                for k in deepest}
+        print(f"[new walks] {label}: {checked} (kernel, ray set) pairs, each "
+              f"with and without count_steps, on {len(sets)} ray sets: ids "
+              f"equal, t bit-equal, counters equal to the plain version on "
+              f"every ray; no push refused, deepest stack (of its rows) "
+              f"{ {k: f'{v} of {rows[k]}' for k, v in deepest.items()} }")
+        return out
+
+    def sweep_at_full_width(label, walk, ir_, recorded, res):
+        """sweep_traverse's loop on one scene at res x res rays per
+        launch; the launch counts are set to 0 just before and read just
+        after.  Returns (rows, launches by variant)."""
+        sets = sweep.standard_ray_sets(walk, ir_, res, 0, recorded)
+        for name, r_ in sets.items():
+            if name != "recorded shadow" and r_[0].shape[0] != res * res:
+                fail(f"{label} {name}: {r_[0].shape[0]} rays, expected "
+                     f"{res * res}")
+        tr.reset_counts()
+        rows = sweep.sweep_scene(walk, label, sets, (2, 4, 8), reps=20)
+        torch.cuda.synchronize()
+        counted = dict(tr.variant_launches)
+        if tr.frontier_launches < 1 or tr.wide_launches < 1:
+            fail(f"{label}: the sweep launched the frontier kernel "
+                 f"{tr.frontier_launches} and the wide kernel "
+                 f"{tr.wide_launches} times")
+        return rows, counted
+
+    def counting_sort_on_the_path(cfg, ir_, recorded):
+        """sort_impl="counting": the permutation on the card equals the
+        CPU's for the recorded bounce-1 rays; Renderer.step renders with
+        it, 10 launches per sample, and is timed in turns beside argsort
+        (2 rounds of 4 samples each, after a warm-up sample)."""
+        o, d, _, _ = recorded["closest_b1"]
+        bmin, bmax = ir_["bvh"]["node_bmin"][0], ir_["bvh"]["node_bmax"][0]
+        key = sort_ops.morton_key(o, d, bmin, bmax,
+                                  dir_major=cfg.sort_dir_major,
+                                  dir_bits=cfg.sort_dir_bits)
+        order, inverse = sort_ops.counting_order(key)
+        order_h, inverse_h = sort_ops.counting_order(key.cpu())
+        if not (torch.equal(order.cpu(), order_h)
+                and torch.equal(inverse.cpu(), inverse_h)):
+            fail("counting_order on the card differs from the CPU's")
+        if not torch.equal(inverse[order],
+                           torch.arange(o.shape[0], device=o.device)):
+            fail("counting_order: inverse[order[i]] != i")
+        buckets = int(torch.unique(key >> 24).numel())
+        sort_ms = sweep.time_in_turns(
+            {"counting": lambda: sort_ops.counting_order(key),
+             "argsort": lambda: torch.sort(key, stable=True)}, 20, True)
+        print(f"[counting] counting_order of {o.shape[0]} recorded bounce-1 "
+              f"keys ({buckets} of 256 buckets used): card == CPU, "
+              f"{sort_ms['counting']:.3f} ms; a stable sort of the full keys "
+              f"{sort_ms['argsort']:.3f} ms")
+        n = 4
+        res = cfg.x_res
+        renderers = {}
+        for impl in ("argsort", "counting"):
+            renderers[impl] = Renderer(cfg.replace(sort_impl=impl), ir_)
+            renderers[impl].step(1)  # warm-up
+        torch.cuda.synchronize()
+        times = {impl: [] for impl in renderers}
+        for _ in range(2):
+            for impl, r_ in renderers.items():
+                tr.reset_counts()
+                t0 = time.time()
+                r_.step(n)
+                torch.cuda.synchronize()
+                times[impl].append((time.time() - t0) / n * 1e3)
+                add_path_launches(f"sort_impl={impl}", {DEFAULT: 10 * n})
+        images = {impl: r_.get_pass("beauty").reshape(res, res, 4)[..., :3]
+                  for impl, r_ in renderers.items()}
+        close = np.isclose(images["counting"], images["argsort"], rtol=1e-4,
+                           atol=1e-5).all(axis=-1).mean()
+        print(f"[counting] Renderer.step {res}x{res}, {cfg.max_bounces} "
+              f"bounces, ms/sample in turns (2 rounds of {n} samples): "
+              f"sort_impl=argsort {[round(t, 1) for t in times['argsort']]}, "
+              f"sort_impl=counting "
+              f"{[round(t, 1) for t in times['counting']]}; 10 launches per "
+              f"sample under both; after {1 + 2 * n} samples "
+              f"{close * 100:.2f}% of pixels within rtol 1e-4 / atol 1e-5, "
+              f"means {images['counting'].mean():.6f} / "
+              f"{images['argsort'].mean():.6f}")
+        if (not np.isfinite(images["counting"]).all()
+                or not images["counting"].mean() > 0 or close < 0.99):
+            fail("sort_impl=counting: the render is not finite, positive "
+                 "and equal to the argsort render on 99% of pixels")
+        return times
+
     # ---- 3. kernel against its plain version -----------------------------
     t0 = time.time()
     scene, config, ir = heightfield_scene(grid=182, res=1024, compat=False)
@@ -738,10 +910,11 @@ def main():
     # ---- 11. the kernel's variants against the plain version ---------------
     t0 = time.time()
     plain_ms = {}
-    for label, tables, dep, rays, rec in (
-            ("65,522 tris", ir["kernel"], depth, rays_main, shapes),
-            ("999,698 tris", ir5["kernel"], depth5, rays5, shapes5)):
-        plain_ms[label] = check_variants(label, tables, dep, rays, rec)
+    for label, tables, dep, rays, rec, only in (
+            ("65,522 tris", ir["kernel"], depth, rays_main, shapes, None),
+            ("999,698 tris", ir5["kernel"], depth5, rays5, shapes5,
+             [("random rays", "closest")])):
+        plain_ms[label] = check_variants(label, tables, dep, rays, rec, only)
     phase_done("phase 11", t0)
 
     # ---- 12. the variants timed ---------------------------------------------
@@ -760,7 +933,6 @@ def main():
                   f"counters {b:.4f} ms; phases 6/10 had {a:.4f} ms "
                   f"({'unchanged' if a == b else 'moved'})")
     phase_done("phase 12", t0)
-    del ir5
 
     # ---- 13. the gradient path, card against CPU ----------------------------
     t0 = time.time()
@@ -774,14 +946,40 @@ def main():
     grad_launches = gradient_at_full_width(cfg, ir)
     phase_done("phase 14", t0)
 
+    # ---- 15. the frontier and wide walks against their plain versions -----
+    t0 = time.time()
+    walk = sweep.make_walk(ir, depth)
+    walk5 = sweep.make_walk(ir5, depth5)
+    new_plain = check_new_walks("65,522 tris", walk, rays_main, shapes, True)
+    check_new_walks("999,698 tris", walk5, rays5, shapes5, False)
+    phase_done("phase 15", t0)
+
+    # ---- 16. the traversal A/B sweep at full width --------------------------
+    t0 = time.time()
+    sweep_rows, sweep_launches = sweep_at_full_width("65,522 tris", walk, ir,
+                                                     shapes, 1024)
+    rows5, launches5 = sweep_at_full_width("999,698 tris", walk5, ir5,
+                                           shapes5, 1024)
+    for k, v in launches5.items():
+        sweep_launches[k] = sweep_launches.get(k, 0) + v
+    print(f"[sweep] launches by variant over both scenes: "
+          f"{ {str(k): v for k, v in sorted(sweep_launches.items())} }")
+    phase_done("phase 16", t0)
+    del ir5, walk5
+
+    # ---- 17. sort_impl="counting" on the main path ---------------------------
+    t0 = time.time()
+    counting_ms = counting_sort_on_the_path(cfg, ir, shapes)
+    phase_done("phase 17", t0)
+
     src = "elevenrender_tpu_torch/csrc/bvh_traverse.cu"
     row12 = "elevenrender_tpu/ops/bvh_pallas.py:102"
     row3 = "elevenrender_tpu/ops/bvh_pallas.py:102 (stream=True)"
     row4 = ("elevenrender_tpu/ops/bvh_pallas.py:102 (count_steps :286, "
             "order=sign :371, leaf_aabb :260, leaf_mode :330)")
 
-    def entry(name, replaces, launches, err, t, extra=None):
-        e = dict(name=name, route="cuda", source=src, replaces=replaces,
+    def entry(name, replaces, launches, err, t, extra=None, source=src):
+        e = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches, max_abs_err=err, ms=t["ms"],
                  plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                  bound_by=t["bound_by"], library_ms=None)
@@ -835,6 +1033,43 @@ def main():
                 {"counters_per_ray": t["counters"],
                  "ms_config5": vt5[("near", 0, leaf_mode, count,
                                     shape)]["ms"]}))
+    # Rows 5 and 6, the walks of the A/B sweep: timed and counted there
+    # (phase 16) on the main scene's recorded launches, held to their plain
+    # versions bit for bit in phase 15 (its error and the plain version's
+    # time there).  No render path launches them.
+    row5 = "elevenrender_tpu/ops/bvh_pallas.py:430"
+    row6 = "elevenrender_tpu/experiments/bvh_wide.py:72"
+    by_cell = {(r["scene"], r["ray_set"], r["kernel"]): r
+               for r in sweep_rows + rows5}
+    for kernel, mode in ([(k_, "closest") for k_ in NEW_WALKS]
+                         + [(ANY_HIT_WALK, "any-hit")]):
+        ray_set = ("recorded bounce 1" if mode == "closest"
+                   else "recorded shadow")
+        r_ = by_cell[("65,522 tris", ray_set, kernel)]
+        wide = kernel == sweep.WIDE
+        lib = "bvh_wide" if wide else "bvh_frontier"
+        launched = sum(v for k_, v in sweep_launches.items()
+                       if k_[0] == kernel)
+        on_render_paths = sum(v for k_, v in path_launches.items()
+                              if k_[0] == kernel)
+        if on_render_paths:
+            fail(f"{kernel} was launched {on_render_paths} times on a "
+                 f"render path")
+        t = dict(r_, plain_ms=new_plain[(kernel, mode)][0])
+        extra = {"launches_render_paths": 0,
+                 "counters_per_ray": r_["counters"],
+                 "vs_binary": r_["vs_binary"],
+                 "ms_by_ray_set": {
+                     f"{sc} {rs}": c_["ms"]
+                     for (sc, rs, k_), c_ in by_cell.items()
+                     if k_ == kernel and c_["mode"] == r_["mode"]},
+                 **ptxas_of(lib, "Lb0E" if wide else
+                            f"ILi{kernel.split('=')[1]}ELb0E")}
+        kern.append(entry(
+            f"bvh_{'wide' if wide else 'frontier'} {mode}"
+            + ("" if wide else f", {kernel}"),
+            row6 if wide else row5, launched, new_plain[(kernel, mode)][1],
+            t, extra, source=f"elevenrender_tpu_torch/csrc/{lib}.cu"))
     for e in kern:
         if e["launches"] < 1:
             fail(f"kernel {e['name']!r} was launched no time on its path")
@@ -846,7 +1081,8 @@ def main():
           f"count_steps) over the driven paths: "
           f"{ {str(k): v for k, v in sorted(path_launches.items())} }")
     print(f"[done] {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": kern, "instruments": instruments}))
+    print(json.dumps({"kernels": kern, "instruments": instruments,
+                      "counting_ms_per_sample": counting_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,10 @@
 ``(config, ir)`` as plain data, ``dataclasses.asdict(config)`` and
 ``jax.tree.map(np.asarray, ir)``, and returns the port's
 ``(RenderConfig, ir)``, with the CUDA traversal's tables built from
-``ir["bvh"]`` and the leaf-ordered ``ir["tris"]["verts"]``.  It is how
-the tests hand both packages the same scene.  ``ir_to`` moves an IR
+``ir["bvh"]`` and the leaf-ordered ``ir["tris"]["verts"]``; with
+``wide=True`` also the 8-wide tables (``ir["wide"]``, built from the same
+flat BVH by ``experiments/bvh_wide.pack_bvh_wide``: the JAX IR holds
+none).  It is how the tests hand both packages the same scene.  ``ir_to`` moves an IR
 between devices.  ``params_from_numpy`` and ``params_to_numpy`` carry a
 tree of gradient parameters or gradients (the JAX package's
 ``jax.tree.map(np.asarray, params)``) to the port's dict of tensors and
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
+from .experiments.bvh_wide import pack_bvh_wide
 from .ops.intersect import pack_tri_attributes
 from .ops.traverse import pack_tables
 from .scene.ir import RenderConfig, ir_to_torch
@@ -28,7 +31,8 @@ _ENV_KEYS = ("img", "cdf", "rsum", "alias_prob", "alias_idx")
 _ATLAS_KEYS = ("data", "off", "w", "h", "ch", "filter")
 
 
-def ir_from_numpy(config_fields: dict, ir_np: dict, device="cuda"):
+def ir_from_numpy(config_fields: dict, ir_np: dict, device="cuda",
+                  wide: bool = False):
     dev = resolve_device(device)
     config = RenderConfig(**config_fields)
     tris = {k: np.asarray(ir_np["tris"][k]) for k in _TRI_KEYS}
@@ -48,6 +52,8 @@ def ir_from_numpy(config_fields: dict, ir_np: dict, device="cuda"):
         "camera": dict(ir_np["camera"]),
         "lights": dict(ir_np["lights"]),
     }
+    if wide:
+        port["wide"] = pack_bvh_wide({**bvh, "depth": config.bvh_depth})
     return config, ir_to_torch(port, dev)
 
 

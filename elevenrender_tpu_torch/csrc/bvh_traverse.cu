@@ -58,83 +58,19 @@
 // keeps the kernel from it.  The tables stay in L2 at 66k tris (3.2 MiB);
 // at 1M tris the 45.8 MiB tri table shares the 50 MB L2 with the wavefront
 // and the shading's attribute rows, and the kernel does 1.4-2.2x less
-// work per millisecond (PERF.md, config 5).  Warp-coherent traversal, a
-// wide (4- or 8-ary) BVH, compressed nodes and FMA are later work.
+// work per millisecond (PERF.md, config 5).  The frontier-K walk and the
+// 8-wide collapsed BVH (bvh_frontier.cu, bvh_wide.cu) are measured beside
+// this walk by sweep_traverse.py; one thread per ray, neither beats it on
+// closest-hit rays (PERF.md).  Warp-coherent traversal, compressed nodes
+// and FMA are later work.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "bvh_common.cuh"
 
 namespace {
 
+using namespace bvh;  // Ray, slab, test_tris, groups_of_8 (bvh_common.cuh)
+
 constexpr int kStack = 32;  // the wrapper refuses depth + 2 > kStack
-
-__device__ __forceinline__ float mn(float a, float b) { return a < b ? a : b; }
-__device__ __forceinline__ float mx(float a, float b) { return a > b ? a : b; }
-
-struct Ray {
-  float ox, oy, oz;
-  float dx, dy, dz;
-  float ix, iy, iz;
-};
-
-// Slab test of one box; entry = its entry distance when it passes, else inf.
-__device__ __forceinline__ bool slab(float x1, float y1, float z1, float x2,
-                                     float y2, float z2, const Ray& r,
-                                     float best_t, float& entry) {
-  float t1 = (x1 - r.ox) * r.ix;
-  float t2 = (x2 - r.ox) * r.ix;
-  float t3 = (y1 - r.oy) * r.iy;
-  float t4 = (y2 - r.oy) * r.iy;
-  float t5 = (z1 - r.oz) * r.iz;
-  float t6 = (z2 - r.oz) * r.iz;
-  float tmin = mx(mx(mn(t1, t2), mn(t3, t4)), mn(t5, t6));
-  float tmax = mn(mn(mx(t1, t2), mx(t3, t4)), mx(t5, t6));
-  bool hit = !((tmax < 0.0f) || (tmin > tmax)) && (tmin < best_t);
-  entry = hit ? tmin : CUDART_INF_F;
-  return hit;
-}
-
-// Tests leaf-order tris [from, to).  Returns true when an any-hit ray is
-// resolved.
-template <bool kCount>
-__device__ __forceinline__ bool test_tris(const float4* __restrict__ tris,
-                                          int from, int to, const Ray& r,
-                                          int any_hit, int excl, int& best_idx,
-                                          float& best_t, int& tests) {
-  for (int slot = from; slot < to; ++slot) {
-    const float4 a = __ldg(&tris[3 * slot + 0]);  // v0
-    const float4 b = __ldg(&tris[3 * slot + 1]);  // e1 = v1 - v0
-    const float4 c = __ldg(&tris[3 * slot + 2]);  // e2 = v2 - v0
-    if constexpr (kCount) ++tests;
-    float px = r.dy * c.z - r.dz * c.y;
-    float py = r.dz * c.x - r.dx * c.z;
-    float pz = r.dx * c.y - r.dy * c.x;
-    float det = b.x * px + b.y * py + b.z * pz;
-    float inv_det = 1.0f / (fabsf(det) < 1e-30f ? 1e-30f : det);
-    float tx = r.ox - a.x;
-    float ty = r.oy - a.y;
-    float tz = r.oz - a.z;
-    float u = (tx * px + ty * py + tz * pz) * inv_det;
-    float qx = ty * b.z - tz * b.y;
-    float qy = tz * b.x - tx * b.z;
-    float qz = tx * b.y - ty * b.x;
-    float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-    float t = (c.x * qx + c.y * qy + c.z * qz) * inv_det;
-    bool ok = (fabsf(det) > 1e-7f) && (u >= 0.0f) && (u <= 1.0f) &&
-              (v >= 0.0f) && (u + v <= 1.0f) && (t >= 0.0f) && (t < best_t);
-    if (any_hit) {
-      if (ok && slot != excl) {
-        best_idx = slot;
-        best_t = -CUDART_INF_F;
-        return true;
-      }
-    } else if (ok) {
-      best_idx = slot;
-      best_t = t;
-    }
-  }
-  return false;
-}
 
 // Scans one leaf's range [from, to): every slot (kLeafAabb == 0), or
 // group by group behind each group's box test.  Group g covers slots
@@ -169,10 +105,6 @@ __device__ __forceinline__ bool scan(const float4* __restrict__ tris,
   }
 }
 
-__device__ __forceinline__ int groups_of_8(int from, int to) {
-  return to > from ? ((to - 1) >> 3) - (from >> 3) + 1 : 0;
-}
-
 template <bool kCount, bool kSign, int kLeafAabb, int kLeafMode>
 __global__ void __launch_bounds__(128)
 bvh_traverse_kernel(const float4* __restrict__ boxes,
@@ -188,16 +120,7 @@ bvh_traverse_kernel(const float4* __restrict__ boxes,
                     int n, int depth, int any_hit) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Ray r;
-  r.ox = ray_o[3 * i + 0];
-  r.oy = ray_o[3 * i + 1];
-  r.oz = ray_o[3 * i + 2];
-  r.dx = ray_d[3 * i + 0];
-  r.dy = ray_d[3 * i + 1];
-  r.dz = ray_d[3 * i + 2];
-  r.ix = 1.0f / r.dx;
-  r.iy = 1.0f / r.dy;
-  r.iz = 1.0f / r.dz;
+  const Ray r = load_ray(ray_o, ray_d, i);
   const int excl = any_hit ? exclude[i] : -1;
   float best_t = any_hit ? t_max[i] : CUDART_INF_F;
   int best_idx = -1;

@@ -5,8 +5,8 @@ Each kernel source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 with ``ctypes``.  Nothing is built at import time: a library is built at
 its first use (or by ``build_all``, which starts one ``nvcc`` per source
 at once) into ``build/kernels/`` beside the package, keyed by a hash of
-its source and flags, so a changed source rebuilds and an unchanged one
-loads at once.  A failed build raises with nvcc's output.
+its sources, the headers they share and its flags, so a changed source or
+header rebuilds and an unchanged one loads at once.  A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -22,10 +22,16 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 
-# name -> (sources, extra nvcc flags).  --fmad=false keeps every float
-# op of the traversal separately rounded, as its plain version is.
+# name -> (sources, extra nvcc flags, headers).  The sources go to nvcc;
+# the headers they include do not, but are hashed with them, so an edited
+# header rebuilds every library that shares it.  --fmad=false keeps every
+# float op of the traversals separately rounded, as their plain versions
+# are.
+_TRAVERSAL = (("--fmad=false",), ("bvh_common.cuh",))
 LIBRARIES = {
-    "bvh_traverse": (("bvh_traverse.cu",), ("--fmad=false",)),
+    "bvh_traverse": (("bvh_traverse.cu",), *_TRAVERSAL),
+    "bvh_frontier": (("bvh_frontier.cu",), *_TRAVERSAL),
+    "bvh_wide": (("bvh_wide.cu",), *_TRAVERSAL),
 }
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,10 +54,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[Path, list[str]]:
-    sources, flags = LIBRARIES[name]
+    sources, flags, headers = LIBRARIES[name]
     paths = [CSRC / s for s in sources]
     h = hashlib.sha256()
-    for p in paths:
+    for p in paths + [CSRC / s for s in headers]:
         h.update(p.read_bytes())
     h.update(" ".join(BASE_FLAGS + flags).encode())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

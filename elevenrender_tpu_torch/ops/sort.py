@@ -1,6 +1,6 @@
 """Ray reordering for coherent traversal.
 
-Port of ``morton_key`` and ``sort_for_packets`` from
+Port of ``morton_key``, ``counting_order`` and ``sort_for_packets`` from
 ``elevenrender_tpu/ops/sort.py``.  A sort key is a 30-bit Morton code of
 the scene-normalized origin combined with a direction class; keys are
 bit-identical to the JAX package's uint32 keys but held as int64 in
@@ -58,21 +58,47 @@ def morton_key(origin, direction, bounds_min, bounds_max,
     return ((code << 3) & 0xFFFFFFFF) | octant
 
 
+SORT_IMPLS = ("argsort", "counting")
+
+
+def _inverse_of(order):
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(order.shape[0], device=order.device)
+    return inverse
+
+
+def counting_order(key, bits: int = 8, chunk: int = 2048):
+    """Stable sort of the keys (int64 in [0, 2^32)) by their top ``bits``
+    bits alone: 2^bits buckets, and inside a bucket the order the rays
+    came in, so the grouping refines from bounce to bounce.
+
+    Returns (order, inverse): ``key[order]`` is bucket-sorted and
+    ``inverse[order[i]] = i``, integer for integer the JAX package's
+    ``counting_order``.  That one ranks by one-hot prefix sums over chunks
+    of ``chunk`` keys, its answer to a machine without a fast sort; here a
+    stable sort of the bucket ids gives the same permutation, and
+    ``chunk`` is taken for call parity and changes nothing."""
+    del chunk
+    bucket = key >> (32 - bits)
+    order = torch.sort(bucket, stable=True).indices
+    return order, _inverse_of(order)
+
+
 def sort_for_packets(origin, direction, bounds_min, bounds_max, mask=None,
                      dir_major: bool = False, impl: str = "argsort",
                      dir_bits: int = 3):
     """(order, inverse): ``origin[order]`` is coherent; ``x[inverse]``
     scatters results back.  Lanes outside ``mask`` get the largest key,
-    so they pack at the tail.  The sort is stable, as ``jnp.argsort``
-    is, so the order equals the JAX package's."""
-    if impl != "argsort":
-        raise NotImplementedError(
-            f"sort_impl={impl!r}: only 'argsort' is ported so far")
+    so they pack at the tail.  ``impl``: "argsort", a full sort of the
+    keys, stable as ``jnp.argsort`` is, or "counting", the stable bucket
+    sort ``counting_order``; either order equals the JAX package's."""
+    if impl not in SORT_IMPLS:
+        raise ValueError(f"sort_impl {impl!r}: expected one of {SORT_IMPLS}")
     key = morton_key(origin, direction, bounds_min, bounds_max,
                      dir_major=dir_major, dir_bits=dir_bits)
     if mask is not None:
         key = torch.where(mask, key, torch.full_like(key, DEAD_KEY))
+    if impl == "counting":
+        return counting_order(key)
     order = torch.sort(key, stable=True).indices
-    inverse = torch.empty_like(order)
-    inverse[order] = torch.arange(order.shape[0], device=order.device)
-    return order, inverse
+    return order, _inverse_of(order)

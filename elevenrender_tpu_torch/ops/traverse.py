@@ -17,6 +17,16 @@ group of 8 or 4 leaf slots, a pure cull), ``leaf_mode`` ("full";
 leaf-parent visits, 8-aligned slot groups of the leaf ranges entered,
 Möller-Trumbore tests executed).
 
+``frontier=K`` (2..8) selects the frontier-K walk instead, the port of
+``elevenrender_tpu/ops/bvh_pallas.py:_kernel_frontier``: the kernel
+``csrc/bvh_frontier.cu`` on a CUDA tensor, ``traverse_frontier_plain`` on
+a CPU tensor.  It pops up to K stack entries per step and slab-tests all
+their children with the best_t of the step's start, then scans leaves and
+pushes in pop order; the same tables, the same t bit for bit, ids up to
+equal-t ties, closest-hit and any-hit, ``count_steps`` in the same four
+columns.  ``order``, ``leaf_aabb`` and ``leaf_mode`` do not apply to it
+and are ignored, as the TPU kernel ignores them.
+
 Kernel tables (``pack_tables``, built by ``build_ir``/``ir_from_numpy``):
   boxes   f32 [NN, 12]: row p = both children of interior node p
           (left bmin, left bmax, right bmin, right bmax), read as 3 float4;
@@ -43,6 +53,8 @@ from .bvh import preorder_indices
 from .intersect import moller_trumbore
 
 STACK = 32  # the kernel's per-thread stack (csrc/bvh_traverse.cu kStack)
+FRONTIERS = range(2, 9)    # the frontier-K walk's K
+FRONTIER_MAX_DEPTH = 20    # csrc/bvh_frontier.cu kMaxDepth
 # The kernel indexes tris, boxes and rays with 32-bit ints as 3*i + k
 # (float4 rows; 3 floats per ray): the most rows of each it can address.
 MAX_ROWS = (2**31 - 1) // 3
@@ -52,18 +64,42 @@ LEAF_MODES = ("full", "noscan", "skip")
 _GROUP_TABLE = {1: "groups8", 2: "groups4"}
 _GROUP_SHIFT = {1: 3, 2: 2}
 
-# Kernel launches since the last reset: all of them, the any-hit ones, and
-# per variant (order, leaf_aabb, leaf_mode, count_steps) -> launches.
+# Kernel launches since the last reset.  ``launches`` and
+# ``any_hit_launches`` count the binary kernel (csrc/bvh_traverse.cu),
+# ``frontier_launches`` the frontier-K kernel (csrc/bvh_frontier.cu),
+# ``wide_launches`` the 8-wide kernel (csrc/bvh_wide.cu, launched by
+# experiments/bvh_wide.py).  ``variant_launches`` splits all three by
+# (order, leaf_aabb, leaf_mode, count_steps); the frontier walk's order
+# reads "frontier=K", the wide walk's "wide".
 launches = 0
 any_hit_launches = 0
+frontier_launches = 0
+wide_launches = 0
 variant_launches: dict = {}
+
+# The frontier walk's stack over the rays of its last count_steps launch
+# or plain run: the deepest any ray's stack grew (entries) and the pushes
+# refused because it was full.  A refused push may lose a hit.
+frontier_stack = {"deepest": 0, "refused": 0}
 
 
 def reset_counts() -> None:
-    global launches, any_hit_launches
+    global launches, any_hit_launches, frontier_launches, wide_launches
     launches = 0
     any_hit_launches = 0
+    frontier_launches = 0
+    wide_launches = 0
     variant_launches.clear()
+
+
+def count_variant(key) -> None:
+    variant_launches[key] = variant_launches.get(key, 0) + 1
+
+
+def frontier_stack_rows(frontier: int, depth: int) -> int:
+    """Capacity of the frontier walk's per-ray stack, the TPU kernel's
+    allocation; a push needs ``sp < rows - 1``."""
+    return 4 * frontier * depth + 8
 
 
 def pack_tables(node_bmin, node_bmax, node_from, node_to, verts_sorted,
@@ -128,7 +164,8 @@ def pack_tables(node_bmin, node_bmax, node_from, node_to, verts_sorted,
 
 def traverse(tables: dict, ray_o, ray_d, depth: int, exclude=None,
              t_max=None, order: str = "near", leaf_aabb: int = 0,
-             leaf_mode: str = "full", count_steps: bool = False):
+             leaf_mode: str = "full", count_steps: bool = False,
+             frontier: int = 1):
     """Nearest hit (or, with ``exclude`` [N] i32 and ``t_max`` [N] f32,
     occlusion) of rays [N, 3] against the tables' BVH.
 
@@ -137,10 +174,22 @@ def traverse(tables: dict, ray_o, ray_d, depth: int, exclude=None,
     occlusion flag and t is -inf on a hit.  With ``count_steps`` a third
     result, the per-ray work counts [N, 4] i32 (see the module's note).
     ``order``, ``leaf_aabb`` and ``leaf_mode`` as the module's note says;
-    an unknown value raises ``ValueError``."""
+    an unknown value raises ``ValueError``.  ``frontier`` > 1 selects the
+    frontier-K walk (K = 2..8, else ``ValueError``), which has no such
+    variants: the three flags are then ignored."""
     if (exclude is None) != (t_max is None):
         raise ValueError("exclude and t_max come together (any-hit mode)")
     check_variant(order, leaf_aabb, leaf_mode)
+    if frontier != 1:
+        check_frontier(frontier, depth)
+        if ray_o.device.type == "cpu":
+            return traverse_frontier_plain(tables, ray_o, ray_d, depth,
+                                           frontier, exclude, t_max,
+                                           count_steps)
+        if ray_o.device.type != "cuda":
+            raise ValueError(f"traverse: unsupported device {ray_o.device}")
+        return _launch_frontier(tables, ray_o, ray_d, depth, frontier,
+                                exclude, t_max, count_steps)
     if ray_o.device.type == "cpu":
         return traverse_plain(tables, ray_o, ray_d, depth, exclude, t_max,
                               order, leaf_aabb, leaf_mode, count_steps)
@@ -158,6 +207,15 @@ def check_variant(order, leaf_aabb, leaf_mode):
     if leaf_mode not in LEAF_MODES:
         raise ValueError(f"leaf_mode {leaf_mode!r}: expected one of "
                          f"{LEAF_MODES}")
+
+
+def check_frontier(frontier, depth):
+    if frontier not in FRONTIERS:
+        raise ValueError(f"frontier {frontier!r}: expected 1 (the binary "
+                         f"walk) or 2..{FRONTIERS[-1]}")
+    if not 1 <= depth <= FRONTIER_MAX_DEPTH:
+        raise ValueError(f"bvh depth {depth} outside the frontier walk's "
+                         f"range [1, {FRONTIER_MAX_DEPTH}]")
 
 
 def _check(name, x, dtype, shape, device):
@@ -210,16 +268,12 @@ def _check_leaf_ranges(leaves, t_rows):
     _checked_leaves.add(key)
 
 
-def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
-            leaf_aabb=0, leaf_mode="full", count_steps=False):
-    global launches, any_hit_launches
-    check_variant(order, leaf_aabb, leaf_mode)
+def _check_launch(tables, ray_o, ray_d, depth, exclude, t_max):
+    """What every launch checks: the binary tables, the rays and the
+    any-hit inputs, on the rays' device.  Returns (n, nn, t_rows)."""
     dev = ray_o.device
     n = ray_o.shape[0]
     nn = tables["boxes"].shape[0]
-    if depth < 1 or depth + 2 > STACK:
-        raise ValueError(f"bvh depth {depth} outside the kernel's range "
-                         f"[1, {STACK - 2}]")
     if nn != (1 << (depth + 1)) - 1:
         raise ValueError(f"boxes has {nn} rows, depth {depth} needs "
                          f"{(1 << (depth + 1)) - 1}")
@@ -231,6 +285,35 @@ def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
         raise ValueError(f"{t_rows} tris and {n} rays: the kernel's 32-bit "
                          f"indexing serves at most {MAX_ROWS} of each")
     _check_leaf_ranges(tables["leaves"], t_rows)
+    _check("ray_o", ray_o, torch.float32, (n, 3), dev)
+    _check("ray_d", ray_d, torch.float32, (n, 3), dev)
+    if exclude is not None:
+        _check("exclude", exclude, torch.int32, (n,), dev)
+        _check("t_max", t_max, torch.float32, (n,), dev)
+    return n, nn, t_rows
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _outputs(n, dev, count_steps):
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    counts = (torch.empty((n, 4), dtype=torch.int32, device=dev)
+              if count_steps else None)
+    return idx, t, counts
+
+
+def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
+            leaf_aabb=0, leaf_mode="full", count_steps=False):
+    global launches, any_hit_launches
+    check_variant(order, leaf_aabb, leaf_mode)
+    dev = ray_o.device
+    if depth < 1 or depth + 2 > STACK:
+        raise ValueError(f"bvh depth {depth} outside the kernel's range "
+                         f"[1, {STACK - 2}]")
+    n, nn, t_rows = _check_launch(tables, ray_o, ray_d, depth, exclude, t_max)
     code = groups = None
     if order == "sign":
         code = tables["order"]
@@ -241,38 +324,81 @@ def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
         size = 1 << _GROUP_SHIFT[leaf_aabb]
         _check(_GROUP_TABLE[leaf_aabb], groups, torch.float32,
                (-(-t_rows // size), 8), dev)
-    _check("ray_o", ray_o, torch.float32, (n, 3), dev)
-    _check("ray_d", ray_d, torch.float32, (n, 3), dev)
     any_hit = exclude is not None
-    if any_hit:
-        _check("exclude", exclude, torch.int32, (n,), dev)
-        _check("t_max", t_max, torch.float32, (n,), dev)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    counts = (torch.empty((n, 4), dtype=torch.int32, device=dev)
-              if count_steps else None)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
+    idx, t, counts = _outputs(n, dev, count_steps)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bvh_traverse(
-            ptr(tables["boxes"]), ptr(tables["leaves"]), ptr(tables["tris"]),
-            ptr(code), ptr(groups), ptr(ray_o), ptr(ray_d), ptr(exclude),
-            ptr(t_max), ptr(idx), ptr(t), ptr(counts), n, depth,
-            int(any_hit), int(count_steps), int(order == "sign"),
-            leaf_aabb if scans else 0, LEAF_MODES.index(leaf_mode), stream)
+            _ptr(tables["boxes"]), _ptr(tables["leaves"]),
+            _ptr(tables["tris"]), _ptr(code), _ptr(groups), _ptr(ray_o),
+            _ptr(ray_d), _ptr(exclude), _ptr(t_max), _ptr(idx), _ptr(t),
+            _ptr(counts), n, depth, int(any_hit), int(count_steps),
+            int(order == "sign"), leaf_aabb if scans else 0,
+            LEAF_MODES.index(leaf_mode), stream)
     if rc != 0:
         raise RuntimeError("bvh_traverse launch failed: "
                            + lib.bvh_traverse_error_string(rc).decode())
     if n > 0:
         launches += 1
         any_hit_launches += int(any_hit)
-        key = (order, leaf_aabb, leaf_mode, bool(count_steps))
-        variant_launches[key] = variant_launches.get(key, 0) + 1
+        count_variant((order, leaf_aabb, leaf_mode, bool(count_steps)))
     if count_steps:
+        return idx, t, counts
+    return idx, t
+
+
+_frontier_lib = None
+
+
+def _frontier_library():
+    global _frontier_lib
+    if _frontier_lib is None:
+        from .. import kernels
+        lib = kernels.load("bvh_frontier")
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.bvh_frontier.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.bvh_frontier.restype = ctypes.c_int
+        lib.bvh_frontier_max_depth.argtypes = []
+        lib.bvh_frontier_max_depth.restype = ctypes.c_int
+        lib.bvh_frontier_error_string.argtypes = [ctypes.c_int]
+        lib.bvh_frontier_error_string.restype = ctypes.c_char_p
+        if lib.bvh_frontier_max_depth() != FRONTIER_MAX_DEPTH:
+            raise RuntimeError("csrc/bvh_frontier.cu kMaxDepth and "
+                               "FRONTIER_MAX_DEPTH disagree")
+        _frontier_lib = lib
+    return _frontier_lib
+
+
+def _launch_frontier(tables, ray_o, ray_d, depth, frontier, exclude, t_max,
+                     count_steps=False):
+    global frontier_launches
+    check_frontier(frontier, depth)
+    dev = ray_o.device
+    n, _, _ = _check_launch(tables, ray_o, ray_d, depth, exclude, t_max)
+    any_hit = exclude is not None
+    idx, t, counts = _outputs(n, dev, count_steps)
+    stats = (torch.zeros((2,), dtype=torch.int32, device=dev)
+             if count_steps else None)
+    lib = _frontier_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.bvh_frontier(
+            _ptr(tables["boxes"]), _ptr(tables["leaves"]),
+            _ptr(tables["tris"]), _ptr(ray_o), _ptr(ray_d), _ptr(exclude),
+            _ptr(t_max), _ptr(idx), _ptr(t), _ptr(counts), _ptr(stats), n,
+            depth, frontier, int(any_hit), int(count_steps), stream)
+    if rc != 0:
+        raise RuntimeError("bvh_frontier launch failed: "
+                           + lib.bvh_frontier_error_string(rc).decode())
+    if n > 0:
+        frontier_launches += 1
+        count_variant((f"frontier={frontier}", 0, "full", bool(count_steps)))
+    if count_steps:
+        if n > 0:
+            deepest, refused = stats.tolist()  # the instrument may sync
+            frontier_stack.update(deepest=deepest, refused=refused)
         return idx, t, counts
     return idx, t
 
@@ -589,6 +715,123 @@ def traverse_plain(tables: dict, ray_o, ray_d, depth: int, exclude=None,
         sp[act] = torch.where(push, s + 1, torch.where(pop, s - 1, s))
         done = (pop & (popped_node < 0)) | resolved
         act = act[~done]
+    out = (best_idx.to(torch.int32), best_t)
+    if count_steps:
+        return out + (counts.to(torch.int32),)
+    return out
+
+
+def _grown(stack, need):
+    """``stack`` [n, w] with at least ``need`` columns (doubling)."""
+    w = stack.shape[1]
+    if need <= w:
+        return stack
+    pad = torch.zeros((stack.shape[0], max(w, need - w)), dtype=stack.dtype,
+                      device=stack.device)
+    return torch.cat([stack, pad], dim=1)
+
+
+def traverse_frontier_plain(tables: dict, ray_o, ray_d, depth: int,
+                            frontier: int, exclude=None, t_max=None,
+                            count_steps: bool = False):
+    """The frontier-K kernel's walk (csrc/bvh_frontier.cu) as lockstep
+    PyTorch over the still-active rays: per step each ray pops up to
+    ``frontier`` stack entries, slab-tests all their children with the
+    best_t of the step's start, then takes the entries in pop order: leaf
+    scans (right child, then left, with the running best_t) at leaf
+    parents, elsewhere a push of the farther child and then the nearer.
+    The stack holds ``frontier_stack_rows`` entries and a push needs
+    ``sp < rows - 1``, as in the kernel; ``frontier_stack`` reports the
+    deepest stack and the refused pushes of this run.
+
+    Same results as the kernel: ids equal, t bit-equal and, with
+    ``count_steps``, the same per-ray counts [N, 4] i32 (node visits,
+    leaf-parent visits, 8-aligned slot groups entered, tri tests); an
+    any-hit ray stops at the entry that resolves it."""
+    check_frontier(frontier, depth)
+    dev = ray_o.device
+    n = ray_o.shape[0]
+    any_hit = exclude is not None
+    boxes, tris = tables["boxes"], tables["tris"]
+    leaves = tables["leaves"].to(torch.int64)
+    cap = frontier_stack_rows(frontier, depth)
+    inv = 1.0 / ray_d
+    best_idx = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_t = (t_max.clone() if any_hit
+              else torch.full((n,), float("inf"), device=dev))
+    excl = exclude.to(torch.int64) if any_hit else None
+    # The stack's storage grows on demand; its capacity is ``cap``.
+    stack_node = torch.zeros((n, min(cap, 2 * depth + 8)), dtype=torch.int64,
+                             device=dev)
+    stack_dep = torch.zeros_like(stack_node)
+    sp = torch.ones((n,), dtype=torch.int64, device=dev)
+    counts = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    deepest = 1 if n else 0
+    refused = 0
+    act = torch.arange(n, device=dev)
+    while act.numel():
+        s = sp[act]
+        k = torch.clamp(s, max=frontier)
+        o, iv, d = ray_o[act], inv[act], ray_d[act]
+        bt0 = best_t[act]
+        ent = []
+        for j in range(frontier):
+            valid = k > j
+            pos = torch.clamp(s - 1 - j, min=0)
+            nd = stack_node[act, pos]
+            dep = stack_dep[act, pos]
+            b = boxes[nd]
+            l_over, l_near = _slab(b[:, 0:3], b[:, 3:6], o, iv, bt0)
+            r_over, r_near = _slab(b[:, 6:9], b[:, 9:12], o, iv, bt0)
+            ent.append((valid, nd, dep, l_over & valid, r_over & valid,
+                        l_near, r_near))
+        s = s - k
+        counts[act, 0] += k
+        resolved = torch.zeros_like(ent[0][0])
+        for valid, nd, dep, l_over, r_over, l_near, r_near in ent:
+            live = valid & ~resolved
+            alp = dep == depth - 1
+            at_leaf = live & alp & (l_over | r_over)
+            if bool(at_leaf.any()):
+                sel = at_leaf.nonzero()[:, 0]
+                ga = act[sel]
+                lv = leaves[nd[sel]]
+                lo, ro = l_over[sel], r_over[sel]
+                idx2, t2, hit, tested, in_right = _leaf_scan(
+                    tris, lv, lo, ro, ray_o[ga], ray_d[ga], best_idx[ga],
+                    best_t[ga], excl[ga] if any_hit else None, any_hit)
+                best_idx[ga] = idx2
+                best_t[ga] = t2
+                counts[ga, 1] += 1
+                counts[ga, 2] += (_groups_of_8(lv[:, 2], lv[:, 3], ro)
+                                  + _groups_of_8(lv[:, 0], lv[:, 1],
+                                                 lo & ~in_right))
+                counts[ga, 3] += tested
+                if any_hit:
+                    resolved[sel] = hit
+            trav = live & ~alp
+            l_idx = nd + 1
+            r_idx = nd + (1 << (depth - dep))
+            l_first = l_near <= r_near
+            first = torch.where(l_first, l_idx, r_idx)
+            second = torch.where(l_first, r_idx, l_idx)
+            first_ok = torch.where(l_first, l_over, r_over) & trav
+            second_ok = torch.where(l_first, r_over, l_over) & trav
+            for child, ok in ((second, second_ok), (first, first_ok)):
+                room = s < cap - 1
+                refused += int((ok & ~room).sum())
+                push = ok & room
+                if bool(push.any()):
+                    need = int(s[push].max()) + 1
+                    stack_node = _grown(stack_node, need)
+                    stack_dep = _grown(stack_dep, need)
+                    stack_node[act[push], s[push]] = child[push]
+                    stack_dep[act[push], s[push]] = dep[push] + 1
+                    s = s + push.to(s.dtype)
+            deepest = max(deepest, int(s.max()))
+        sp[act] = s
+        act = act[(s > 0) & ~resolved]
+    frontier_stack.update(deepest=deepest, refused=refused)
     out = (best_idx.to(torch.int32), best_t)
     if count_steps:
         return out + (counts.to(torch.int32),)

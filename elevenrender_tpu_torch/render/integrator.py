@@ -25,11 +25,11 @@ choices, sampled directions and the RNG stream are constants of the
 backward pass.  ``record=True`` returns each bounce's discrete trace
 results (hit ids, occlusion bits) and ``trace_cache=`` replays them, so
 a replayed sample launches no traversal and sorts no rays.
-``sort_impl="counting"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 
@@ -49,6 +49,7 @@ from ..ops.texture import (reverse_spherical_mapping, sample_filtered,
                            sample_nearest, spherical_mapping)
 from . import shaders as shader_registry
 
+WIDE_TRACE_MODES = ("pallas_wide", "pallas_wide_stream")
 BEAUTY, DENOISE, NORMAL, TANGENT, BITANGENT = range(5)
 PASSES_COUNT = 5
 
@@ -76,11 +77,27 @@ def init_state(config, device="cuda") -> dict:
     return state
 
 
+@functools.lru_cache(maxsize=None)
+def _warn_wide_mode(mode: str) -> None:
+    """Once per process and mode: every trace of a render resolves it."""
+    logging.getLogger(__name__).warning(
+        "trace_mode=%r: the 8-wide walk is kept for measurement only "
+        "(elevenrender_tpu_torch/experiments/bvh_wide.py); rendering with "
+        "the binary traversal kernel", mode)
+
+
 def resolve_trace_mode(config, ir) -> str:
     """"brute" for tiny scenes (<= 64 tris), ``use_bvh=False`` or
-    ``trace_mode="brute"``; otherwise "bvh", the traversal kernel."""
+    ``trace_mode="brute"``; otherwise "bvh", the binary traversal kernel.
+    The 8-wide walk is no render mode: ``trace_mode="pallas_wide"`` and
+    ``"pallas_wide_stream"`` log a warning and take the binary kernel."""
     n_tris = ir["tris"]["verts"].shape[0]
-    if (not config.use_bvh or config.trace_mode == "brute"
+    if not config.use_bvh:
+        return "brute"
+    if config.trace_mode in WIDE_TRACE_MODES:
+        _warn_wide_mode(config.trace_mode)
+        return "bvh"
+    if (config.trace_mode == "brute"
             or (config.trace_mode == "auto" and n_tris <= 64)):
         return "brute"
     return "bvh"

@@ -62,7 +62,8 @@ class RenderConfig:
     compat: bool = True            # replicate the reference's quirks
     use_bvh: bool = True
     # "brute" tests every tri; any other value, and "auto" above 64 tris,
-    # goes through the CUDA traversal (its plain version on the CPU).
+    # goes through the CUDA traversal (its plain version on the CPU);
+    # "pallas_wide" / "pallas_wide_stream" do so with a warning.
     trace_mode: str = "auto"
     # TPU tile widths of the Pallas kernel; not read by the port.
     packet_tile: int = 128
@@ -76,7 +77,7 @@ class RenderConfig:
     sort_rays: bool = True
     sort_dir_major: bool = True
     sort_dir_bits: int = 3
-    sort_impl: str = "argsort"     # "counting" is not ported yet: raises
+    sort_impl: str = "argsort"     # | "counting": by the key's top 8 bits
     packed_sort_io: bool = True    # TPU gather layout; the port gathers
     # > 0 overrides recommended_samples_per_dispatch, the JAX package's
     # samples per jitted dispatch; no code path of the port depends on it.

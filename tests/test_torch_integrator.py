@@ -208,8 +208,18 @@ def test_renderer_passes_and_unported_features():
         if "n_lights" not in on:
             np.testing.assert_allclose(img, r.get_pass("beauty"), rtol=1e-6,
                                        atol=1e-7)
-    with pytest.raises(NotImplementedError):
-        Renderer(cfg.replace(sort_impl="counting", trace_mode="pallas"), ir,
+    # sort_impl="counting" is ported: on this scene of 50 tris, forced
+    # through the traversal, it renders the argsort image (the sort is
+    # undone after each trace); an unknown value raises.
+    sorted_ = {}
+    for impl in ("argsort", "counting"):
+        r3 = Renderer(cfg.replace(sort_impl=impl, trace_mode="pallas"), ir,
+                      device="cpu")
+        r3.step(1)
+        sorted_[impl] = r3.get_pass("beauty")
+    np.testing.assert_array_equal(sorted_["counting"], sorted_["argsort"])
+    with pytest.raises(ValueError, match="sort_impl"):
+        Renderer(cfg.replace(sort_impl="radix", trace_mode="pallas"), ir,
                  device="cpu").step(1)
     # The gradient slice's options no longer raise: a recorded sample
     # equals the plain one, and every material_fetch renders with a
@@ -233,6 +243,81 @@ def test_renderer_passes_and_unported_features():
     with pytest.raises(ValueError):
         ti.render_sample(cfg.replace(material_fetch="scatter"), ir, state,
                          device="cpu")
+
+
+def test_counting_sort_renders_the_argsort_and_the_jax_image():
+    """``sort_impl="counting"`` on the grid-12 heightfield, two samples:
+    the port's render equals its ``argsort`` render within the pair
+    tolerance of (b) (the permutation is undone after each trace, so only
+    an equal-t tie can differ), the sort really ran as the counting sort,
+    and the JAX package's render under the same setting agrees as (b)
+    asks."""
+    config, ir = _heightfield(False)
+    want, got, cfg = _run_pair(config.replace(sort_impl="counting"), ir, 2)
+    assert cfg.sort_impl == "counting"
+    _check_pair((want, got, cfg))
+    cfg_a, tir = _convert(config, ir)
+    assert ti.uses_sort(cfg, tir)
+    assert cfg_a.sort_impl == "argsort"
+    seen = []
+    real = ti.sort_for_packets
+
+    def spy(*args, **kw):
+        seen.append(kw["impl"])
+        return real(*args, **kw)
+
+    images = {}
+    for c in (cfg_a, cfg):
+        r = Renderer(c, tir, device="cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ti, "sort_for_packets", spy)
+            r.step(2)
+        images[c.sort_impl] = r.get_pass("beauty").reshape(-1, 4)[:, :3]
+    assert set(seen) == {"argsort", "counting"}
+    assert seen.count("counting") == seen.count("argsort") > 0
+    assert _close_frac(images["counting"], images["argsort"]) >= 0.99
+    np.testing.assert_allclose(images["counting"].mean(),
+                               images["argsort"].mean(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["pallas_wide", "pallas_wide_stream"])
+def test_wide_trace_modes_warn_and_render_with_the_binary_kernel(mode,
+                                                                  caplog):
+    """As in the JAX package, the 8-wide walk is no render mode: the port
+    logs a warning that names where the walk lives, once, and renders
+    exactly the binary kernel's image; no wide walk runs."""
+    from elevenrender_tpu_torch.experiments import bvh_wide
+    _, cfg, ir = demo.heightfield_scene(grid=12, res=16, compat=False,
+                                        device="cpu")
+    cfg = cfg.replace(max_bounces=2)
+    ti._warn_wide_mode.cache_clear()
+    with pytest.MonkeyPatch.context() as mp:
+        def no_wide(*a, **kw):
+            raise AssertionError("the wide walk is not a render mode")
+        mp.setattr(bvh_wide, "traverse_wide", no_wide)
+        mp.setattr(bvh_wide, "traverse_wide_plain", no_wide)
+        with caplog.at_level("WARNING",
+                             logger=ti.__name__):
+            assert ti.resolve_trace_mode(cfg.replace(trace_mode=mode),
+                                         ir) == "bvh"
+            r = Renderer(cfg.replace(trace_mode=mode), ir, device="cpu")
+            r.step(1)
+    warned = [rec for rec in caplog.records
+              if rec.levelname == "WARNING" and mode in rec.getMessage()]
+    assert len(warned) == 1
+    assert "experiments/bvh_wide.py" in warned[0].getMessage()
+    assert "binary" in warned[0].getMessage()
+    base = Renderer(cfg.replace(trace_mode="pallas"), ir, device="cpu")
+    base.step(1)
+    np.testing.assert_array_equal(r.get_pass("beauty"),
+                                  base.get_pass("beauty"))
+    # Even on a scene small enough for brute force under "auto".
+    _, small, ir_small = demo.heightfield_scene(grid=4, res=8, device="cpu")
+    assert ti.resolve_trace_mode(small, ir_small) == "brute"
+    assert ti.resolve_trace_mode(small.replace(trace_mode=mode),
+                                 ir_small) == "bvh"
+    assert ti.resolve_trace_mode(
+        small.replace(trace_mode=mode, use_bvh=False), ir_small) == "brute"
 
 
 def test_trace_order_and_leaf_aabb_reach_the_traversal():

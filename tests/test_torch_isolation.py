@@ -103,6 +103,91 @@ for step in (grad.fwd_bwd_step_accum, grad.fwd_bwd_step):
     assert "gradient fwd_bwd_step " in res.stdout
 
 
+def test_traversal_sweep_runs_without_jax():
+    """The A/B sweep's entry point, the frontier and wide walks and the
+    counting sort, with jax and the JAX package blocked from import."""
+    code = """
+import torch
+from elevenrender_tpu_torch import sweep_traverse
+from elevenrender_tpu_torch.ops.sort import sort_for_packets
+rows = sweep_traverse.main(["--device", "cpu", "--grids", "10", "--res", "16",
+                            "--reps", "1", "--frontiers", "2,4"])
+kernels = sorted({r["kernel"] for r in rows})
+assert kernels == ["binary", "frontier=2", "frontier=4", "wide"], kernels
+z = torch.rand((64, 3))
+order, inverse = sort_for_packets(z, z, z.min(0).values, z.max(0).values,
+                                  impl="counting")
+assert torch.equal(inverse[order], torch.arange(64))
+print("swept", len(rows))
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "swept 14" in res.stdout
+
+
+def test_new_walks_refuse_other_devices_and_never_fall_back():
+    """``traverse(..., frontier=4)`` and ``traverse_wide`` take the plain
+    version for a CPU tensor only: a tensor that claims another device
+    raises, and so does the launch path itself where no kernel can be
+    built, instead of giving way to the plain version."""
+    from elevenrender_tpu_torch import kernels
+    from elevenrender_tpu_torch.experiments import bvh_wide
+    from elevenrender_tpu_torch.ops import traverse as tt
+    from elevenrender_tpu_torch.scene import demo
+
+    z = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tt.traverse({}, z, z, 3, frontier=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bvh_wide.traverse_wide(None, None, None, z, z, 3)
+    assert set(kernels.LIBRARIES) == {"bvh_traverse", "bvh_frontier",
+                                      "bvh_wide"}
+    for sources, _, headers in kernels.LIBRARIES.values():
+        assert all((kernels.CSRC / f).exists() for f in sources + headers)
+        assert "bvh_common.cuh" in headers
+    if torch.cuda.is_available():
+        return
+    _, cfg, ir = demo.heightfield_scene(grid=10, res=8, device="cpu")
+    o = torch.zeros((4, 3))
+    d = torch.ones((4, 3))
+    wide = {k: torch.tensor(v) for k, v in bvh_wide.pack_bvh_wide(
+        {**{k: v.numpy() for k, v in ir["bvh"].items()},
+         "depth": cfg.bvh_depth}).items()}
+    tt.reset_counts()
+    with pytest.raises((RuntimeError, OSError)):
+        tt._launch_frontier(ir["kernel"], o, d, cfg.bvh_depth, 4, None, None)
+    with pytest.raises((RuntimeError, OSError)):
+        bvh_wide._launch(wide["nodes8"], wide["leaf8"], ir["kernel"]["tris"],
+                         o, d, cfg.bvh_depth)
+    assert tt.frontier_launches == 0 and tt.wide_launches == 0
+
+
+def test_a_changed_header_changes_the_library_hash(tmp_path, monkeypatch):
+    """The build key covers the headers a source includes, which nvcc is
+    not handed: editing the shared header moves every library's target."""
+    import shutil
+    from elevenrender_tpu_torch import kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = {name: kernels._target(name) for name in kernels.LIBRARIES}
+    for name, (out, cmd) in before.items():
+        assert not any(arg.endswith(".cuh") for arg in cmd), name
+    with open(csrc / "bvh_common.cuh", "a") as f:
+        f.write("// edited\n")
+    for name, (out, cmd) in before.items():
+        assert kernels._target(name)[0] != out, name
+    with open(csrc / "bvh_wide.cu", "a") as f:
+        f.write("// edited\n")
+    edited = {name: kernels._target(name)[0] for name in kernels.LIBRARIES}
+    with open(csrc / "bvh_wide.cu", "a") as f:
+        f.write("// again\n")
+    for name in kernels.LIBRARIES:
+        assert (kernels._target(name)[0] != edited[name]) == (
+            name == "bvh_wide")
+
+
 def test_chip_smoke_refuses_to_run_without_a_card():
     """Without CUDA the smoke test exits non-zero and prints no result;
     its failure is the missing card, not a missing jax."""

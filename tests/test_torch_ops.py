@@ -288,6 +288,56 @@ def test_sort_keys_and_order_exact(dir_major, dir_bits):
 
 
 def test_counting_sort_is_not_ported_yet():
+    """The name dates from when ``impl="counting"`` raised; it is ported
+    now: it sorts, and only an unknown ``impl`` raises."""
     z = torch.zeros((8, 3))
-    with pytest.raises(NotImplementedError):
-        tsort.sort_for_packets(z, z, z[0], z[0] + 1, impl="counting")
+    order, inverse = tsort.sort_for_packets(z, z, z[0], z[0] + 1,
+                                            impl="counting")
+    np.testing.assert_array_equal(order.numpy(), np.arange(8))
+    np.testing.assert_array_equal(inverse.numpy(), np.arange(8))
+    with pytest.raises(ValueError, match="sort_impl"):
+        tsort.sort_for_packets(z, z, z[0], z[0] + 1, impl="radix")
+
+
+@pytest.mark.parametrize("n", [2048, 5000, 100_001])
+@pytest.mark.parametrize("bits", [8, 5])
+def test_counting_order_equals_jax(n, bits):
+    """(order, inverse) equal the JAX function's integer for integer, at a
+    size that is a multiple of its chunk and at two that are not; a stable
+    sort by the top ``bits`` bits with ``inverse[order[i]] = i``."""
+    key = np.random.default_rng(n).integers(0, 1 << 32, n, dtype=np.uint32)
+    jo, ji = jsort.counting_order(jnp.asarray(key), bits=bits, chunk=2048)
+    to, ti = tsort.counting_order(_T(key.astype(np.int64)), bits=bits)
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ti.numpy()[to.numpy()], np.arange(n))
+    bucket = (key >> (32 - bits))[to.numpy()].astype(np.int64)
+    assert (np.diff(bucket) >= 0).all()
+    same = np.diff(bucket) == 0
+    assert (np.diff(to.numpy())[same] > 0).all()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dir_major", [False, True])
+def test_counting_sort_for_packets_equals_jax(masked, dir_major):
+    n = 5000  # not a multiple of the reference's chunk of 2048
+    rng = np.random.default_rng(16)
+    o = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    o[:50] = o[50:100]
+    d = _unit(n, seed=17)
+    mask = rng.uniform(size=n) < 0.8 if masked else None
+    bmin = np.array([-2.0, -1.0, -2.0], np.float32)
+    bmax = np.array([2.0, 1.5, 2.0], np.float32)
+    jo, ji = jsort.sort_for_packets(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(bmin), jnp.asarray(bmax),
+        mask=None if mask is None else jnp.asarray(mask),
+        dir_major=dir_major, impl="counting")
+    to, ti = tsort.sort_for_packets(
+        _T(o), _T(d), _T(bmin), _T(bmax),
+        mask=None if mask is None else _T(mask), dir_major=dir_major,
+        impl="counting")
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    if masked:  # the dead lanes share the last bucket, in their own order
+        dead = np.nonzero(~mask)[0]
+        assert (np.diff(ti.numpy()[dead]) > 0).all()

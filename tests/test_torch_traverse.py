@@ -20,6 +20,14 @@ and the ``count_steps`` counters must equal the Pallas kernel's where
 the two count the same thing: a tile filled with copies of one ray makes
 the TPU kernel's per-tile node visits, leaf-parent visits and leaf rows
 that ray's own.
+
+The frontier-K walk (``traverse(..., frontier=K)``, on the CPU
+``traverse_frontier_plain``) is held the same way to
+``traverse_pallas(frontier=K, interpret=True)``, K = 2 and 4, in both
+residencies, closest-hit and any-hit, and its closest-hit counters to the
+Pallas kernel's on a one-ray tile.  Any-hit counters are compared with
+nothing here: a one-ray tile of the TPU kernel goes on popping after the
+ray is resolved, a ray of the port stops.
 """
 
 import dataclasses
@@ -380,6 +388,118 @@ def test_unknown_variant_raises(case, bad):
         tt._launch(case["tables"], o, d, case["depth"], None, None, **bad)
 
 
+def _check_frontier(c, frontier):
+    """The plain frontier walk against the Pallas frontier kernel:
+    closest-hit ids up to equal-t ties and t to 2e-6, the any-hit flag on
+    every ray; and against the port's own binary walk: t bit-equal."""
+    o, d = torch.tensor(c["o"]), torch.tensor(c["d"])
+    ji, jt = (np.asarray(a) for a in _jax_variant(c, frontier=frontier,
+                                                  sub=8))
+    tt.reset_counts()
+    ti, tt_ = tt.traverse(c["tables"], o, d, c["depth"], frontier=frontier)
+    assert tt.frontier_launches == 0 and not tt.variant_launches
+    assert tt.frontier_stack["refused"] == 0
+    assert 1 <= tt.frontier_stack["deepest"] < tt.frontier_stack_rows(
+        frontier, c["depth"])
+    bi, bt = tt.traverse_plain(c["tables"], o, d, c["depth"])
+    assert torch.equal(tt_, bt)
+    ti, tt_ = ti.numpy(), tt_.numpy()
+    assert (ji >= 0).sum() > 100
+    np.testing.assert_array_equal(ti >= 0, ji >= 0)
+    diff = np.nonzero(ti != ji)[0]
+    if diff.size:
+        t_alt = _tri_t(c["tables"], ji[diff], c["o"][diff], c["d"][diff])
+        np.testing.assert_allclose(t_alt, tt_[diff], rtol=1e-6)
+    hit = ji >= 0
+    np.testing.assert_allclose(tt_[hit], jt[hit], rtol=2e-6)
+    exclude, t_max = _any_hit_inputs(c)
+    ja, _ = _jax_variant(c, frontier=frontier, sub=8,
+                         exclude=jnp.asarray(exclude),
+                         t_max=jnp.asarray(t_max))
+    ta, tat = tt.traverse(c["tables"], o, d, c["depth"],
+                          torch.tensor(exclude), torch.tensor(t_max),
+                          frontier=frontier)
+    flag = np.asarray(ja) >= 0
+    assert 0 < flag.sum() < flag.size
+    np.testing.assert_array_equal(ta.numpy() >= 0, flag)
+    assert np.all(tat.numpy()[flag] == -np.inf)
+    np.testing.assert_array_equal(tat.numpy()[~flag], t_max[~flag])
+    ids = ta.numpy()[flag]
+    assert np.all(ids != exclude[flag])
+    t_occ = _tri_t(c["tables"], ids, c["o"][flag], c["d"][flag])
+    assert np.all((t_occ >= 0) & (t_occ < t_max[flag]))
+
+
+@pytest.mark.parametrize("frontier", [2, 4])
+def test_frontier_matches_jax_pallas(case, frontier):
+    _check_frontier(case, frontier)
+
+
+@pytest.mark.parametrize("frontier", [2, 4])
+def test_stream_frontier_matches_jax_pallas(stream_case, frontier):
+    _check_frontier(stream_case, frontier)
+
+
+@pytest.mark.parametrize("frontier", [2, 4])
+def test_frontier_counters_match_jax_count_steps(case, frontier):
+    """A tile of 1024 copies of one ray: the Pallas frontier kernel's
+    per-tile node visits (column 0), leaf rows (1) and leaf-parent visits
+    (2) are that ray's, and equal the plain version's visits, 8-aligned
+    groups and leaf-parent visits; its fourth column is 0.  The frontier
+    visits at least what the binary walk visits (a weaker prune)."""
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    i1, t1 = tt.traverse_frontier_plain(case["tables"], o, d, case["depth"],
+                                        frontier)
+    i2, t2, cnt = tt.traverse_frontier_plain(case["tables"], o, d,
+                                             case["depth"], frontier,
+                                             count_steps=True)
+    assert torch.equal(i1, i2) and torch.equal(t1, t2)
+    assert cnt.shape == (o.shape[0], 4) and cnt.dtype == torch.int32
+    _, _, binary = tt.traverse_plain(case["tables"], o, d, case["depth"],
+                                     count_steps=True)
+    assert int(cnt[:, 0].sum()) >= int(binary[:, 0].sum())
+    assert int(cnt[:, 3].sum()) >= int(binary[:, 3].sum())
+    busiest = int(cnt[:, 0].argmax())
+    assert int(cnt[busiest, 1]) >= 2
+    tile = dict(case, o=np.repeat(case["o"][busiest:busiest + 1], 1024, 0),
+                d=np.repeat(case["d"][busiest:busiest + 1], 1024, 0))
+    _, _, jc = _jax_variant(tile, frontier=frontier, sub=8, count_steps=True)
+    jc = np.asarray(jc)
+    assert jc.shape == (1, 4)
+    visits, leaf_visits, groups, tests = cnt[busiest].tolist()
+    assert (visits, groups, leaf_visits, 0) == tuple(jc[0])
+    assert tests >= 1
+
+
+def test_frontier_refuses_a_push_into_a_full_stack(case, monkeypatch):
+    """The stack's capacity is part of the contract the kernel and the
+    plain version share (a push needs ``sp < rows - 1``): with one
+    row, which the root fills, every push is
+    refused and counted, nothing is written out of bounds, and the walk
+    ends having tested nothing below the root."""
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    monkeypatch.setattr(tt, "frontier_stack_rows", lambda k, depth: 1)
+    idx, t, cnt = tt.traverse_frontier_plain(case["tables"], o, d,
+                                             case["depth"], 2,
+                                             count_steps=True)
+    assert tt.frontier_stack["refused"] > 0
+    assert tt.frontier_stack["deepest"] == 1
+    assert bool((cnt[:, 0] == 1).all()) and bool((idx == -1).all())
+
+
+@pytest.mark.parametrize("bad", [0, 9, -1, 2.5])
+def test_unknown_frontier_raises(case, bad):
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    with pytest.raises(ValueError, match="frontier"):
+        tt.traverse(case["tables"], o, d, case["depth"], frontier=bad)
+    with pytest.raises(ValueError, match="frontier"):
+        tt._launch_frontier(case["tables"], o, d, case["depth"], bad, None,
+                            None)
+    with pytest.raises(ValueError, match="depth"):
+        tt.traverse(case["tables"], o, d, tt.FRONTIER_MAX_DEPTH + 1,
+                    frontier=2)
+
+
 def test_brute_force_matches_jax(case):
     verts = case["verts"]
     ji, jt = jax_brute_force(jnp.asarray(verts), jnp.asarray(case["o"]),
@@ -399,6 +519,8 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tt.traverse({}, torch.zeros((4, 3)), torch.zeros((4, 3)), 3,
                     exclude=torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tt.traverse({}, z, z, 3, frontier=4)
 
 
 def test_wrapper_refuses_tables_it_cannot_serve(case, monkeypatch):
