@@ -6,18 +6,22 @@
 Phases (each prints its lines; any failure ends the run non-zero and no
 result line is printed):
  1. environment: torch and CUDA versions, the card's name and power limit;
- 2. build: every CUDA kernel of the port, from the sources in this tree;
- 3. the BVH traversal kernel against its plain PyTorch version on the
-    65,522-tri heightfield: camera rays, random rays, and the random rays
-    as any-hit queries;
+ 2. build: every CUDA kernel of the port, from the sources in this tree,
+    with each entry function's registers, stack frame and spills (ptxas);
+ 3. the BVH traversal kernel (csrc/bvh_traverse.cu: persistent warps with
+    ray refill, while-while leaf rounds, warp-shared leaf scans, the stack
+    in shared memory) against its plain PyTorch version on the 65,522-tri
+    heightfield: camera rays, random rays, and the random rays as any-hit
+    queries;
  4. the main path: the native forward render step on that scene at
     1024x1024, 5 bounces, through Renderer.step (1 warm-up sample, then 8
     timed), with the kernel's launch counts;
  5. the same scene at 64x64, one sample, on the card and on the CPU;
  6. at the main path's shapes (rays recorded from one sample): the
-    kernel against its plain version again, its time per launch, the
-    plain version's time, and the bound from the plain version's work
-    counts;
+    kernel against its plain version again, its time per launch in turns
+    with its first version (csrc/bvh_traverse_v1.cu, "binary-v1", which no
+    render path launches) and each one's 10-90% spread, the plain
+    version's time, and the bound from the kernel's own counters;
  7. config 5: the 999,698-tri textured heightfield with a point light
     (build time, BVH depth and largest leaf), and the kernel against its
     plain version there, as in phase 3; its tri table (45.8 MiB) no
@@ -48,19 +52,21 @@ result line is printed):
     bounces, 8 samples on the 65,522-tri scene (pass 1 records, pass 2
     replays), its time, rays/s and peak memory; then one sample under
     each other (order, leaf_aabb) variant: the same loss.
-15. the frontier-K walk (K = 2, 4, 8 closest-hit, K = 4 any-hit too) and
-    the 8-wide walk against their plain versions at 65,522 and 999,698
-    tris, on 65,536 camera rays, 65,536 random rays and a 65,536-ray
-    strided subset of the recorded bounce-1 and shadow launches, and on
-    the main path's full recorded launches: ids equal, t bit-equal,
-    counters equal, the same deepest stack, no push refused;
+15. the frontier-K walk (K = 2, 4, 8 closest-hit, K = 4 any-hit too), the
+    8-wide walk and binary-v1 (closest-hit and any-hit) against their
+    plain versions at 65,522 and 999,698 tris, on 65,536 camera rays,
+    65,536 random rays and a 65,536-ray strided subset of the recorded
+    bounce-1 and shadow launches, and on the main path's full recorded
+    launches: ids equal, t bit-equal, counters equal, the same deepest
+    stack, no push refused;
 16. the traversal A/B sweep (elevenrender_tpu_torch/sweep_traverse.py) at
     full width, 1,048,576 rays per launch, on both scenes: coherent
     camera rays, those shuffled and Morton-sorted, and the recorded
     bounce-1 and shadow launches; every walk held to the binary kernel
     (the same rays hit, t bit-equal but for counted near ties within 1e-5
-    relative, ids up to equal-t ties, the any-hit flag exact), timed in
-    turns beside it, with its counters and bound;
+    relative, ids up to equal-t ties, the any-hit flag exact; binary-v1
+    exactly: ids, t and counters), timed in turns beside it, with its
+    counters and bound;
 17. sort_impl="counting": counting_order on the card equals it on the CPU
     for the recorded bounce-1 rays' keys, and Renderer.step at 1024x1024,
     5 bounces renders with it (10 launches per sample), timed in turns
@@ -325,9 +331,10 @@ def main():
     def timing_at_recorded_shapes(label, cfg, ir, depth):
         """Records the first four launches of one sample (bounce 0 and 1,
         closest then any-hit), then times the kernel on the closest-hit
-        bounce-0 and bounce-1 rays and the bounce-1 any-hit rays, checks
-        it against its plain version there, and times the plain
-        version."""
+        bounce-0 and bounce-1 rays and the bounce-1 any-hit rays, in
+        turns with binary-v1 (the median and 10-90% spread of 20 turns
+        each), checks it against its plain version there, and times the
+        plain version."""
         tables = ir["kernel"]
         shapes = sweep.recorded_launches(cfg, ir, "cuda")
         table_bytes = sum(tables[k].numel() * tables[k].element_size()
@@ -337,7 +344,14 @@ def main():
 
         timing = {}
         for key, (o, d, ex, tm) in shapes.items():
-            ms = time_kernel(tables, depth, o, d, ex, tm)
+            turns = sweep.times_in_turns(
+                {"kernel": lambda: tr._launch(tables, o, d, depth, ex, tm),
+                 sweep.V1: lambda: tr.traverse_v1(tables, o, d, depth, ex,
+                                                  tm)}, 20, True)
+            ms, ms_v1 = (float(np.median(turns[k]))
+                         for k in ("kernel", sweep.V1))
+            spread, spread_v1 = (sweep.spread(turns[k])
+                                 for k in ("kernel", sweep.V1))
             pi, pt, p_cnt = tr.traverse_plain(tables, o, d, depth, ex, tm,
                                               count_steps=True)
             check(tables, depth, f"{label} {key}", o, d, ex, tm,
@@ -354,12 +368,19 @@ def main():
                 fail(f"{label} {key}: the kernel's counters differ from the "
                      f"plain version's on "
                      f"{int((k_cnt != p_cnt).any(dim=1).sum())} rays")
-            timing[key] = dict(ms=ms, plain_ms=plain_ms,
+            timing[key] = dict(ms=ms, plain_ms=plain_ms, ms_v1=ms_v1,
+                               vs_v1=ms / ms_v1, spread_ms=spread,
+                               spread_ms_v1=spread_v1,
+                               beyond_spread=spread[1] < spread_v1[0],
                                **bound_of(tables, k_cnt, ex is not None))
             b = timing[key]
             n = o.shape[0]
             print(f"[timing] {label} {key}: {n} rays, kernel {ms:.3f} "
-                  f"ms/launch, plain {plain_ms:.1f} ms, bound "
+                  f"ms/launch (10-90% {spread[0]:.3f}-{spread[1]:.3f}), "
+                  f"binary-v1 {ms_v1:.3f} ({spread_v1[0]:.3f}-"
+                  f"{spread_v1[1]:.3f}) in turns: {ms / ms_v1:.3f}x, "
+                  f"{'apart' if b['beyond_spread'] else 'overlapping'}; "
+                  f"plain {plain_ms:.1f} ms, bound "
                   f"{b['bound_ms']:.4f} ms ({b['bound_by']}, from the "
                   f"kernel's counters, equal to the plain version's: "
                   f"{b['visits'] / n:.1f} visits and {b['tests'] / n:.1f} "
@@ -680,6 +701,9 @@ def main():
     def plain_of(walk, kernel, o, d, ex, tm):
         """The plain version of ``kernel`` on the same (card) tensors,
         with counters; the deepest stack and refused pushes it saw."""
+        if kernel == sweep.V1:
+            return tr.traverse_plain(walk["tables"], o, d, walk["depth"], ex,
+                                     tm, count_steps=True), None
         if kernel == sweep.WIDE:
             out = bvh_wide.traverse_wide_plain(
                 walk["wide"]["nodes8"], walk["wide"]["leaf8"],
@@ -691,10 +715,11 @@ def main():
         return out, dict(tr.frontier_stack)
 
     def check_new_walks(label, walk, rays, recorded, full):
-        """Rows 5 and 6 against their plain versions: the frontier-K walk
-        (K = 2, 4, 8 closest-hit, K = 4 any-hit) and the 8-wide walk on
-        65,536 camera rays, 65,536 random rays (closest-hit, and any-hit
-        for K = 4) and a 65,536-ray strided subset of the recorded
+        """Rows 5 and 6, and binary-v1, against their plain versions: the
+        frontier-K walk (K = 2, 4, 8 closest-hit, K = 4 any-hit), the
+        8-wide walk and binary-v1 (closest-hit and any-hit) on 65,536
+        camera rays, 65,536 random rays (closest-hit, and any-hit for K =
+        4 and binary-v1) and a 65,536-ray strided subset of the recorded
         bounce-1 and shadow launches; with ``full`` also on those whole
         launches, where the plain version is timed.  ids equal, t
         bit-equal, counters equal on every ray, with and without
@@ -720,7 +745,8 @@ def main():
         deepest = {}
         for name, o, d, ex, tm in sets:
             mode = "closest" if ex is None else "any-hit"
-            for kernel in (NEW_WALKS if ex is None else [ANY_HIT_WALK]):
+            for kernel in (NEW_WALKS + [sweep.V1] if ex is None
+                           else [ANY_HIT_WALK, sweep.V1]):
                 what = f"{label} {name} {mode} {kernel}"
                 ki, kt, kc = sweep.run(walk, kernel, o, d, ex, tm,
                                        count_steps=True)
@@ -986,24 +1012,45 @@ def main():
         e.update(extra or {})
         return e
 
+    def against_v1(t, any_hit, dep, extra):
+        """Rows 1-3: the time of binary-v1 in the same turns, both
+        spreads, and the kernel's resources: ptxas, the block's dynamic
+        shared memory (its threads' stacks) at this depth, the blocks
+        that fit on an SM (the persistent grid's second factor)."""
+        return {**extra, "ms_v1": t["ms_v1"], "vs_v1": t["vs_v1"],
+                "spread_ms": t["spread_ms"],
+                "spread_ms_v1": t["spread_ms_v1"],
+                "faster_beyond_spread": t["beyond_spread"],
+                **ptxas_of("bvh_traverse", "bvh_traverse_walkIL"
+                           f"b{int(any_hit)}ELb0ELb0ELi0ELi0E"),
+                "shared_bytes_per_block": tr.stack_bytes(dep),
+                "blocks_per_sm": tr.blocks_per_sm("cuda", dep, any_hit)}
+
     kern = [
         entry("bvh_traverse closest-hit", row12,
               main_closest + grad_launches[("near", 0)][0], err12["closest"],
-              timing["closest_b1"],
-              {"ms_bounce0": timing["closest_b0"]["ms"],
-               "launches_forward_path": main_closest,
-               "launches_gradient_path": grad_launches[("near", 0)][0]}),
+              timing["closest_b1"], against_v1(
+                  timing["closest_b1"], False, depth,
+                  {"ms_bounce0": timing["closest_b0"]["ms"],
+                   "ms_v1_bounce0": timing["closest_b0"]["ms_v1"],
+                   "launches_forward_path": main_closest,
+                   "launches_gradient_path": grad_launches[("near", 0)][0]})),
         entry("bvh_traverse any-hit", row12,
               main_any_hit + grad_launches[("near", 0)][1], err12["any_hit"],
-              timing["any_hit_b1"],
-              {"launches_forward_path": main_any_hit,
-               "launches_gradient_path": grad_launches[("near", 0)][1]}),
+              timing["any_hit_b1"], against_v1(
+                  timing["any_hit_b1"], True, depth,
+                  {"launches_forward_path": main_any_hit,
+                   "launches_gradient_path":
+                       grad_launches[("near", 0)][1]})),
         entry("bvh_traverse closest-hit, stream residency (config 5)", row3,
-              c5_closest, err3["closest"], timing5["closest_b1"],
-              {"ms_bounce0": timing5["closest_b0"]["ms"]}),
+              c5_closest, err3["closest"], timing5["closest_b1"], against_v1(
+                  timing5["closest_b1"], False, depth5,
+                  {"ms_bounce0": timing5["closest_b0"]["ms"],
+                   "ms_v1_bounce0": timing5["closest_b0"]["ms_v1"]})),
         entry("bvh_traverse any-hit, stream residency (config 5, merged "
               "2N-ray shadow launch)", row3, c5_any_hit, err3["any_hit"],
-              timing5["any_hit_b1"]),
+              timing5["any_hit_b1"],
+              against_v1(timing5["any_hit_b1"], True, depth5, {})),
     ]
     # Row 4, the variants a render can ask for: launched on the gradient
     # path (phase 14), timed at the main path's shapes (phase 12), held
@@ -1070,6 +1117,32 @@ def main():
             + ("" if wide else f", {kernel}"),
             row6 if wide else row5, launched, new_plain[(kernel, mode)][1],
             t, extra, source=f"elevenrender_tpu_torch/csrc/{lib}.cu"))
+    # binary-v1, the first version of rows 1-3: launched by the sweep
+    # alone (phase 16), held to its plain version in phase 15 and to the
+    # binary kernel exactly in phase 16.
+    for mode in ("closest", "any-hit"):
+        ray_set = ("recorded bounce 1" if mode == "closest"
+                   else "recorded shadow")
+        r_ = by_cell[("65,522 tris", ray_set, sweep.V1)]
+        on_render_paths = sum(v for k_, v in path_launches.items()
+                              if k_[0] == sweep.V1)
+        if on_render_paths:
+            fail(f"binary-v1 was launched {on_render_paths} times on a "
+                 f"render path")
+        kern.append(entry(
+            f"bvh_traverse_v1 {mode} (binary-v1, the first design of rows "
+            f"1-3)", row12,
+            sum(v for k_, v in sweep_launches.items() if k_[0] == sweep.V1),
+            new_plain[(sweep.V1, mode)][1],
+            dict(r_, plain_ms=new_plain[(sweep.V1, mode)][0]),
+            {"launches_render_paths": 0, "counters_per_ray": r_["counters"],
+             "vs_binary": r_["vs_binary"],
+             "ms_by_ray_set": {
+                 f"{sc} {rs}": c_["ms"]
+                 for (sc, rs, k_), c_ in by_cell.items()
+                 if k_ == sweep.V1 and c_["mode"] == r_["mode"]},
+             **ptxas_of("bvh_traverse_v1", "v1_kernelILb0E")},
+            source="elevenrender_tpu_torch/csrc/bvh_traverse_v1.cu"))
     for e in kern:
         if e["launches"] < 1:
             fail(f"kernel {e['name']!r} was launched no time on its path")

@@ -56,6 +56,32 @@ __device__ __forceinline__ bool slab(float x1, float y1, float z1, float x2,
   return hit;
 }
 
+// Moller-Trumbore of leaf-order tri `slot` (rows v0, e1 = v1 - v0,
+// e2 = v2 - v0): whether the ray meets it at t >= 0, before any best_t
+// test, and that t.
+__device__ __forceinline__ bool moller_trumbore(
+    const float4* __restrict__ tris, int slot, const Ray& r, float& t) {
+  const float4 a = __ldg(&tris[3 * slot + 0]);  // v0
+  const float4 b = __ldg(&tris[3 * slot + 1]);  // e1 = v1 - v0
+  const float4 c = __ldg(&tris[3 * slot + 2]);  // e2 = v2 - v0
+  float px = r.dy * c.z - r.dz * c.y;
+  float py = r.dz * c.x - r.dx * c.z;
+  float pz = r.dx * c.y - r.dy * c.x;
+  float det = b.x * px + b.y * py + b.z * pz;
+  float inv_det = 1.0f / (fabsf(det) < 1e-30f ? 1e-30f : det);
+  float tx = r.ox - a.x;
+  float ty = r.oy - a.y;
+  float tz = r.oz - a.z;
+  float u = (tx * px + ty * py + tz * pz) * inv_det;
+  float qx = ty * b.z - tz * b.y;
+  float qy = tz * b.x - tx * b.z;
+  float qz = tx * b.y - ty * b.x;
+  float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  t = (c.x * qx + c.y * qy + c.z * qz) * inv_det;
+  return (fabsf(det) > 1e-7f) && (u >= 0.0f) && (u <= 1.0f) &&
+         (v >= 0.0f) && (u + v <= 1.0f) && (t >= 0.0f);
+}
+
 // Tests leaf-order tris [from, to).  Returns true when an any-hit ray is
 // resolved.
 template <bool kCount>
@@ -64,26 +90,9 @@ __device__ __forceinline__ bool test_tris(const float4* __restrict__ tris,
                                           int any_hit, int excl, int& best_idx,
                                           float& best_t, int& tests) {
   for (int slot = from; slot < to; ++slot) {
-    const float4 a = __ldg(&tris[3 * slot + 0]);  // v0
-    const float4 b = __ldg(&tris[3 * slot + 1]);  // e1 = v1 - v0
-    const float4 c = __ldg(&tris[3 * slot + 2]);  // e2 = v2 - v0
     if constexpr (kCount) ++tests;
-    float px = r.dy * c.z - r.dz * c.y;
-    float py = r.dz * c.x - r.dx * c.z;
-    float pz = r.dx * c.y - r.dy * c.x;
-    float det = b.x * px + b.y * py + b.z * pz;
-    float inv_det = 1.0f / (fabsf(det) < 1e-30f ? 1e-30f : det);
-    float tx = r.ox - a.x;
-    float ty = r.oy - a.y;
-    float tz = r.oz - a.z;
-    float u = (tx * px + ty * py + tz * pz) * inv_det;
-    float qx = ty * b.z - tz * b.y;
-    float qy = tz * b.x - tx * b.z;
-    float qz = tx * b.y - ty * b.x;
-    float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-    float t = (c.x * qx + c.y * qy + c.z * qz) * inv_det;
-    bool ok = (fabsf(det) > 1e-7f) && (u >= 0.0f) && (u <= 1.0f) &&
-              (v >= 0.0f) && (u + v <= 1.0f) && (t >= 0.0f) && (t < best_t);
+    float t;
+    const bool ok = moller_trumbore(tris, slot, r, t) && (t < best_t);
     if (any_hit) {
       if (ok && slot != excl) {
         best_idx = slot;

@@ -8,6 +8,14 @@ per-ray stack walk in PyTorch with the kernel's visit order, prune,
 Möller-Trumbore arithmetic and any-hit rule, so the two give the same
 ids and bit-equal t.  ``brute_force`` tests every tri, for tiny scenes.
 
+The kernel runs a persistent grid (``persistent_grid``: the SMs times the
+blocks of the variant that fit on one) whose warps take rays from a
+zeroed int32 work counter (``work_counter``).  ``traverse_v1`` launches
+the kernel's first version, ``csrc/bvh_traverse_v1.cu`` (one thread per
+ray, default variant only), which the traversal sweep times it against;
+it computes the same function, and on a CPU tensor runs
+``traverse_plain`` too.
+
 Both take the TPU kernel's variants: ``order`` ("near": nearer child
 first; "sign": the child on the side the ray comes from, by a per-node
 code), ``leaf_aabb`` (0; 1 or 2: a box test in front of each aligned
@@ -52,7 +60,11 @@ import torch
 from .bvh import preorder_indices
 from .intersect import moller_trumbore
 
-STACK = 32  # the kernel's per-thread stack (csrc/bvh_traverse.cu kStack)
+# The binary kernels' deepest tree: a stack entry is (node << 5) | depth
+# in an int32 (csrc/bvh_traverse.cu bvh_traverse_max_depth).
+MAX_DEPTH = 25
+THREADS = 128  # a block of the binary kernel (bvh_traverse_threads)
+RUN = 32       # rays a warp takes from the work counter at once
 FRONTIERS = range(2, 9)    # the frontier-K walk's K
 FRONTIER_MAX_DEPTH = 20    # csrc/bvh_frontier.cu kMaxDepth
 # The kernel indexes tris, boxes and rays with 32-bit ints as 3*i + k
@@ -66,13 +78,16 @@ _GROUP_SHIFT = {1: 3, 2: 2}
 
 # Kernel launches since the last reset.  ``launches`` and
 # ``any_hit_launches`` count the binary kernel (csrc/bvh_traverse.cu),
+# ``v1_launches`` its first version (csrc/bvh_traverse_v1.cu),
 # ``frontier_launches`` the frontier-K kernel (csrc/bvh_frontier.cu),
 # ``wide_launches`` the 8-wide kernel (csrc/bvh_wide.cu, launched by
-# experiments/bvh_wide.py).  ``variant_launches`` splits all three by
-# (order, leaf_aabb, leaf_mode, count_steps); the frontier walk's order
-# reads "frontier=K", the wide walk's "wide".
+# experiments/bvh_wide.py).  ``variant_launches`` splits them all by
+# (order, leaf_aabb, leaf_mode, count_steps); the first version's order
+# reads "binary-v1", the frontier walk's "frontier=K", the wide walk's
+# "wide".
 launches = 0
 any_hit_launches = 0
+v1_launches = 0
 frontier_launches = 0
 wide_launches = 0
 variant_launches: dict = {}
@@ -84,9 +99,11 @@ frontier_stack = {"deepest": 0, "refused": 0}
 
 
 def reset_counts() -> None:
-    global launches, any_hit_launches, frontier_launches, wide_launches
+    global launches, any_hit_launches, v1_launches, frontier_launches
+    global wide_launches
     launches = 0
     any_hit_launches = 0
+    v1_launches = 0
     frontier_launches = 0
     wide_launches = 0
     variant_launches.clear()
@@ -232,22 +249,87 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-_lib = None
+# defines -> the loaded binary kernel library built with them (the
+# default build has none; sweep_traverse's ladder builds the others).
+_libs: dict = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library(defines=()):
+    lib = _libs.get(defines)
+    if lib is None:
         from .. import kernels
-        lib = kernels.load("bvh_traverse")
+        lib = kernels.load("bvh_traverse", defines)
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.bvh_traverse.argtypes = [p] * 12 + [i] * 7 + [p]
+        lib.bvh_traverse.argtypes = [p] * 13 + [i] * 8 + [p]
         lib.bvh_traverse.restype = ctypes.c_int
+        lib.bvh_traverse_blocks_per_sm.argtypes = [i] * 6 + [p]
+        lib.bvh_traverse_blocks_per_sm.restype = ctypes.c_int
         lib.bvh_traverse_error_string.argtypes = [ctypes.c_int]
         lib.bvh_traverse_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        for fn, want in ((lib.bvh_traverse_threads, THREADS),
+                         (lib.bvh_traverse_max_depth, MAX_DEPTH)):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+            if fn() != want:
+                raise RuntimeError(f"csrc/bvh_traverse.cu {fn.__name__} is "
+                                   f"{fn()}, ops/traverse.py expects {want}")
+        _libs[defines] = lib
+    return lib
+
+
+def persistent_grid(n: int, sm_count: int, blocks_per_sm: int) -> int:
+    """Blocks of the binary kernel's persistent grid for ``n`` rays: every
+    block that fits on the card at once, but no more than the rays fill
+    (a warp takes ``RUN`` rays at a time)."""
+    if sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError(f"{sm_count} SMs x {blocks_per_sm} blocks: the "
+                         f"kernel does not fit on the card")
+    warps = -(-n // RUN)
+    return max(1, min(sm_count * blocks_per_sm,
+                      -(-warps // (THREADS // 32))))
+
+
+def work_counter(device) -> torch.Tensor:
+    """The persistent grid's work counter, the next ray a warp takes: one
+    int32, which the C entry point zeroes on the stream before its
+    launch (a memset costs less than ``torch.zeros``' own kernel)."""
+    return torch.empty((1,), dtype=torch.int32, device=device)
+
+
+def stack_bytes(depth: int) -> int:
+    """Dynamic shared memory of one block of the binary kernel: its
+    threads' stacks, depth - 1 entries of one int32 each (at least one)."""
+    return max(depth - 1, 1) * THREADS * 4
+
+
+# (device index, defines, variant flags, depth) -> (SMs, blocks of that
+# variant per SM).
+_occupancy: dict = {}
+
+
+def _fit(lib, defines, dev, depth, flags):
+    key = (dev.index, defines, flags, depth)
+    fit = _occupancy.get(key)
+    if fit is None:
+        out = ctypes.c_int(0)
+        rc = lib.bvh_traverse_blocks_per_sm(*flags, depth,
+                                            ctypes.addressof(out))
+        if rc != 0:
+            raise RuntimeError("bvh_traverse occupancy query failed: "
+                               + lib.bvh_traverse_error_string(rc).decode())
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        fit = _occupancy[key] = (sms, out.value)
+    return fit
+
+
+def blocks_per_sm(device, depth: int, any_hit: bool = False) -> int:
+    """Blocks of the binary kernel's default variant that fit on one SM of
+    ``device`` at ``depth``: the persistent grid's second factor."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        return _fit(_library(), (), dev, depth,
+                    (int(any_hit), 0, 0, 0, 0))[1]
 
 
 # (data_ptr, version, tri rows) of leaf tables already checked.
@@ -305,14 +387,20 @@ def _outputs(n, dev, count_steps):
     return idx, t, counts
 
 
+def _check_depth(depth):
+    if not 1 <= depth <= MAX_DEPTH:
+        raise ValueError(f"bvh depth {depth} outside the kernel's range "
+                         f"[1, {MAX_DEPTH}]")
+
+
 def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
-            leaf_aabb=0, leaf_mode="full", count_steps=False):
+            leaf_aabb=0, leaf_mode="full", count_steps=False, defines=()):
+    """One launch of csrc/bvh_traverse.cu; ``defines`` picks a build of
+    it with levers turned off (sweep_traverse's ladder)."""
     global launches, any_hit_launches
     check_variant(order, leaf_aabb, leaf_mode)
     dev = ray_o.device
-    if depth < 1 or depth + 2 > STACK:
-        raise ValueError(f"bvh depth {depth} outside the kernel's range "
-                         f"[1, {STACK - 2}]")
+    _check_depth(depth)
     n, nn, t_rows = _check_launch(tables, ray_o, ray_d, depth, exclude, t_max)
     code = groups = None
     if order == "sign":
@@ -326,16 +414,18 @@ def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
                (-(-t_rows // size), 8), dev)
     any_hit = exclude is not None
     idx, t, counts = _outputs(n, dev, count_steps)
-    lib = _library()
+    work = work_counter(dev)
+    lib = _library(defines)
+    flags = (int(any_hit), int(count_steps), int(order == "sign"),
+             leaf_aabb if scans else 0, LEAF_MODES.index(leaf_mode))
     with torch.cuda.device(dev):
+        grid = persistent_grid(n, *_fit(lib, defines, dev, depth, flags))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bvh_traverse(
             _ptr(tables["boxes"]), _ptr(tables["leaves"]),
             _ptr(tables["tris"]), _ptr(code), _ptr(groups), _ptr(ray_o),
             _ptr(ray_d), _ptr(exclude), _ptr(t_max), _ptr(idx), _ptr(t),
-            _ptr(counts), n, depth, int(any_hit), int(count_steps),
-            int(order == "sign"), leaf_aabb if scans else 0,
-            LEAF_MODES.index(leaf_mode), stream)
+            _ptr(counts), _ptr(work), n, depth, *flags, grid, stream)
     if rc != 0:
         raise RuntimeError("bvh_traverse launch failed: "
                            + lib.bvh_traverse_error_string(rc).decode())
@@ -343,6 +433,68 @@ def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
         launches += 1
         any_hit_launches += int(any_hit)
         count_variant((order, leaf_aabb, leaf_mode, bool(count_steps)))
+    if count_steps:
+        return idx, t, counts
+    return idx, t
+
+
+def traverse_v1(tables: dict, ray_o, ray_d, depth: int, exclude=None,
+                t_max=None, count_steps: bool = False):
+    """``traverse``'s default variant through the kernel's first version,
+    ``csrc/bvh_traverse_v1.cu``, on a CUDA tensor (the traversal sweep's
+    walk "binary-v1"); ``traverse_plain`` on a CPU tensor.  The same
+    results and counters as ``traverse``."""
+    if (exclude is None) != (t_max is None):
+        raise ValueError("exclude and t_max come together (any-hit mode)")
+    if ray_o.device.type == "cpu":
+        return traverse_plain(tables, ray_o, ray_d, depth, exclude, t_max,
+                              count_steps=count_steps)
+    if ray_o.device.type != "cuda":
+        raise ValueError(f"traverse: unsupported device {ray_o.device}")
+    return _launch_v1(tables, ray_o, ray_d, depth, exclude, t_max,
+                      count_steps)
+
+
+_v1_lib = None
+
+
+def _v1_library():
+    global _v1_lib
+    if _v1_lib is None:
+        from .. import kernels
+        lib = kernels.load("bvh_traverse_v1")
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.bvh_traverse_v1.argtypes = [p] * 10 + [i] * 4 + [p]
+        lib.bvh_traverse_v1.restype = ctypes.c_int
+        lib.bvh_traverse_v1_error_string.argtypes = [ctypes.c_int]
+        lib.bvh_traverse_v1_error_string.restype = ctypes.c_char_p
+        _v1_lib = lib
+    return _v1_lib
+
+
+def _launch_v1(tables, ray_o, ray_d, depth, exclude, t_max,
+               count_steps=False):
+    global v1_launches
+    dev = ray_o.device
+    _check_depth(depth)
+    n, _, _ = _check_launch(tables, ray_o, ray_d, depth, exclude, t_max)
+    any_hit = exclude is not None
+    idx, t, counts = _outputs(n, dev, count_steps)
+    lib = _v1_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.bvh_traverse_v1(
+            _ptr(tables["boxes"]), _ptr(tables["leaves"]),
+            _ptr(tables["tris"]), _ptr(ray_o), _ptr(ray_d), _ptr(exclude),
+            _ptr(t_max), _ptr(idx), _ptr(t), _ptr(counts), n, depth,
+            int(any_hit), int(count_steps), stream)
+    if rc != 0:
+        raise RuntimeError("bvh_traverse_v1 launch failed: "
+                           + lib.bvh_traverse_v1_error_string(rc).decode())
+    if n > 0:
+        v1_launches += 1
+        count_variant(("binary-v1", 0, "full", bool(count_steps)))
     if count_steps:
         return idx, t, counts
     return idx, t

@@ -1,9 +1,10 @@
-"""A/B of the traversal kernels on one card: the binary walk, the
-frontier-K walk and the 8-wide collapsed BVH on the same rays.
+"""A/B of the traversal kernels on one card: the binary walk, its first
+version, the frontier-K walk and the 8-wide collapsed BVH on the same
+rays.
 
     python3 -m elevenrender_tpu_torch.sweep_traverse [--grids 182,708]
         [--res 1024] [--frontiers 2,4,8] [--reps 20] [--seed 0]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--ladder]
 
 The port's counterpart of the JAX package's ``scripts/sweep_trav_kernels.py``
 and ``scripts/sweep_frontier.py`` in one module.  Each scene comes from
@@ -14,8 +15,11 @@ the real construction path (``scene/demo.heightfield_scene`` ->
   sorted-incoherent  those rays shuffled (numpy ``default_rng(seed)``),
                      then Morton-sorted by ``ops/sort.sort_for_packets``;
   recorded bounce 1  the second closest-hit launch of one render sample;
-  recorded shadow    its any-hit launch (binary and frontier-4 only: the
-                     wide walk has no any-hit mode).
+  recorded shadow    its any-hit launch (binary, binary-v1 and frontier-4
+                     only: the wide walk has no any-hit mode).
+"binary-v1" is the binary kernel's first version (``csrc/bvh_traverse_v1.cu``,
+one thread per ray), held to the binary kernel exactly: ids, t and
+counters equal on every ray.
 Per (kernel, ray set) it prints the time per launch (CUDA events, the
 median of ``--reps`` launches, the kernels taking turns inside one round
 so that a drifting clock touches all alike), Mrays/s, the mean per-ray
@@ -29,6 +33,12 @@ last line is one JSON object with every row.
 With ``--device cpu`` the same code runs the kernels' plain versions, for
 the tests, at a small size (``--grids 12 --res 32``); its times are host
 times of PyTorch on the CPU and say nothing about the card.
+
+``--ladder`` (card only) times instead what each lever of the binary
+kernel's design buys (``LADDER``: builds of ``csrc/bvh_traverse.cu`` with
+levers turned off, beside ``binary-v1``), in turns on the coherent and the
+two recorded ray sets of each scene, every step held to the binary kernel
+bit for bit; the last line is one JSON object with its rows.
 
 ``chip_smoke.py`` calls the functions below with scenes it has already
 built, so the loops exist once.
@@ -63,6 +73,7 @@ OPS_PER_WIDE_VISIT = 8 * OPS_PER_SLAB
 OPS_PER_TEST = 55
 
 BINARY = "binary"
+V1 = "binary-v1"
 WIDE = "wide"
 ANY_HIT_FRONTIER = 4  # the frontier timed on shadow rays
 
@@ -87,9 +98,12 @@ def make_walk(ir: dict, depth: int) -> dict:
 
 def run(walk: dict, kernel: str, o, d, exclude=None, t_max=None,
         count_steps: bool = False):
-    """One launch of ``kernel`` ("binary", "frontier=K" or "wide") through
-    its public wrapper: the CUDA kernel on CUDA rays, the plain version on
-    CPU rays."""
+    """One launch of ``kernel`` ("binary", "binary-v1", "frontier=K" or
+    "wide") through its public wrapper: the CUDA kernel on CUDA rays, the
+    plain version on CPU rays."""
+    if kernel == V1:
+        return tr.traverse_v1(walk["tables"], o, d, walk["depth"], exclude,
+                              t_max, count_steps)
     if kernel == WIDE:
         if exclude is not None:
             raise ValueError("the wide walk has no any-hit mode")
@@ -220,9 +234,32 @@ def agreement(walk: dict, label: str, ref, got, o, d, any_hit: bool) -> dict:
                 near_ties=int(near.numel()), near_tie_gap=gap)
 
 
+def same_walk(label: str, ref, got) -> None:
+    """Two kernels of the same walk (the binary kernel and a version or
+    build of it) on the same rays: (idx, t, counters) equal on every ray,
+    t bit for bit; raises otherwise."""
+    for name, a, b in zip(("ids", "t", "counters"), ref, got):
+        if not torch.equal(a, b):
+            bad = (a != b) if a.dim() == 1 else (a != b).any(dim=1)
+            raise RuntimeError(f"{label}: {name} differ from the binary "
+                               f"kernel's on {int(bad.sum())} rays")
+
+
 def time_in_turns(fns: dict, reps: int, on_card: bool) -> dict:
     """name -> median ms of ``reps`` calls; round by round, every function
     once.  CUDA events on the card, the host clock on the CPU."""
+    return {name: float(np.median(v))
+            for name, v in times_in_turns(fns, reps, on_card).items()}
+
+
+def spread(times) -> tuple:
+    """(10th, 90th percentile) of a list of times."""
+    return (float(np.percentile(times, 10)), float(np.percentile(times, 90)))
+
+
+def times_in_turns(fns: dict, reps: int, on_card: bool) -> dict:
+    """name -> the ms of each of ``reps`` calls, as ``time_in_turns``
+    takes them."""
     times = {name: [] for name in fns}
     for name, fn in fns.items():
         for _ in range(3 if on_card else 0):  # warm-up
@@ -241,7 +278,7 @@ def time_in_turns(fns: dict, reps: int, on_card: bool) -> dict:
                 t0 = time.perf_counter()
                 fn()
                 times[name].append((time.perf_counter() - t0) * 1e3)
-    return {name: float(np.median(v)) for name, v in times.items()}
+    return times
 
 
 def sweep_ray_set(walk: dict, scene: str, ray_set: str, rays, kernels,
@@ -261,6 +298,8 @@ def sweep_ray_set(walk: dict, scene: str, ray_set: str, rays, kernels,
         label = f"{scene} {ray_set} {kernel}"
         idx, t, counts = run(walk, kernel, o, d, exclude, t_max,
                              count_steps=True)
+        if kernel == V1:
+            same_walk(label, (*ref, ref_counts), (idx, t, counts))
         row = dict(scene=scene, ray_set=ray_set, kernel=kernel, rays=n,
                    mode="any-hit" if any_hit else "closest",
                    device=str(o.device.type))
@@ -273,7 +312,7 @@ def sweep_ray_set(walk: dict, scene: str, ray_set: str, rays, kernels,
                     f"{label}: {tr.frontier_stack['refused']} pushes were "
                     f"refused by a full stack of {row['stack_rows']}")
         if ref is None:
-            ref = (idx, t)
+            ref, ref_counts = (idx, t), counts
             row.update(ties=0, near_ties=0, near_tie_gap=0.0)
         else:
             row.update(agreement(walk, label, ref, (idx, t), o, d, any_hit))
@@ -308,15 +347,69 @@ def sweep_ray_set(walk: dict, scene: str, ray_set: str, rays, kernels,
 def sweep_scene(walk: dict, scene: str, ray_sets: dict, frontiers,
                 reps: int = 20) -> list:
     """``sweep_ray_set`` over ``ray_sets`` (name -> (o, d, exclude,
-    t_max)): closest-hit sets get the binary walk, every frontier of
-    ``frontiers`` and the wide walk; any-hit sets the binary walk and
-    frontier ``ANY_HIT_FRONTIER``."""
-    closest = ([BINARY] + [frontier_name(k) for k in frontiers] + [WIDE])
+    t_max)): closest-hit sets get the binary walk, binary-v1, every
+    frontier of ``frontiers`` and the wide walk; any-hit sets the binary
+    walk, binary-v1 and frontier ``ANY_HIT_FRONTIER``."""
+    closest = ([BINARY, V1] + [frontier_name(k) for k in frontiers]
+               + [WIDE])
     rows = []
     for name, rays in ray_sets.items():
         kernels = (closest if rays[2] is None
-                   else [BINARY, frontier_name(ANY_HIT_FRONTIER)])
+                   else [BINARY, V1, frontier_name(ANY_HIT_FRONTIER)])
         rows += sweep_ray_set(walk, scene, name, rays, kernels, reps)
+    return rows
+
+
+# The binary kernel's levers (csrc/bvh_traverse.cu), cumulative: each step
+# is a build with the levers after it turned off (None is binary-v1); the
+# last row is a side step, the refill without the while-while loop.
+LADDER = ((V1, None),
+          ("shared stack", ("BVH_POSTPONE=0", "BVH_REFILL=0",
+                            "BVH_SHARED_SCAN=0", "BVH_SCANS_WAIT=0")),
+          ("+ while-while", ("BVH_REFILL=0", "BVH_SHARED_SCAN=0",
+                             "BVH_SCANS_WAIT=0")),
+          ("+ persistent refill", ("BVH_SHARED_SCAN=0", "BVH_SCANS_WAIT=0",
+                                   "BVH_REFILL_AT=1")),
+          ("+ shared leaf scans", ("BVH_SCANS_WAIT=0", "BVH_REFILL_AT=1")),
+          ("+ only scans wait", ("BVH_REFILL_AT=1",)),
+          ("+ refill eight at a time", ()),
+          ("refill without while-while", ("BVH_POSTPONE=0",
+                                          "BVH_REFILL_AT=1")))
+
+
+def ladder_scene(walk: dict, scene: str, ray_sets: dict,
+                 reps: int = 20) -> list:
+    """Every step of ``LADDER`` on each ray set (o, d, exclude, t_max) on
+    the card: held to the binary kernel (ids, t and counters equal), then
+    timed in turns.  Prints one line per step and returns the rows."""
+    from . import kernels
+    kernels.build_all(["bvh_traverse_v1"] + [("bvh_traverse", d)
+                                             for _, d in LADDER if d])
+    tables, depth = walk["tables"], walk["depth"]
+    rows = []
+    for name, (o, d, ex, tm) in ray_sets.items():
+        def step(defines, count=False):
+            if defines is None:
+                return tr.traverse_v1(tables, o, d, depth, ex, tm, count)
+            return tr._launch(tables, o, d, depth, ex, tm,
+                              count_steps=count, defines=defines)
+
+        ref = step((), True)
+        for label, defines in LADDER:
+            same_walk(f"{scene} {name} {label}", ref, step(defines, True))
+        times = times_in_turns({label: (lambda d_=defines: step(d_))
+                                for label, defines in LADDER}, reps, True)
+        first = float(np.median(times[V1]))
+        for label, defines in LADDER:
+            ms = float(np.median(times[label]))
+            lo, hi = spread(times[label])
+            rows.append(dict(scene=scene, ray_set=name, step=label,
+                             defines=list(defines or ()), rays=o.shape[0],
+                             ms=ms, p10=lo, p90=hi, vs_v1=ms / first))
+            print(f"[ladder] {scene} {name} {label}: {ms:.3f} ms/launch "
+                  f"(10-90% {lo:.3f}-{hi:.3f}), {ms / first:.3f}x "
+                  f"binary-v1; ids, t and counters equal to the binary "
+                  f"kernel's")
     return rows
 
 
@@ -342,8 +435,12 @@ def main(argv=None) -> list:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ladder", action="store_true",
+                    help="time the binary kernel's levers (card only)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.ladder and dev.type != "cuda":
+        raise SystemExit("--ladder times CUDA builds: it needs the card")
     frontiers = [int(k) for k in args.frontiers.split(",")]
     if dev.type == "cuda":
         print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -370,8 +467,12 @@ def main(argv=None) -> list:
         recorded = recorded_launches(
             cfg.replace(x_res=args.res, y_res=args.res), ir, dev)
         sets = standard_ray_sets(walk, ir, args.res, args.seed, recorded)
-        rows += sweep_scene(walk, scene, sets, frontiers, args.reps)
-    print(json.dumps({"sweep": rows}))
+        if args.ladder:
+            del sets["sorted-incoherent"]
+            rows += ladder_scene(walk, scene, sets, args.reps)
+        else:
+            rows += sweep_scene(walk, scene, sets, frontiers, args.reps)
+    print(json.dumps({"ladder" if args.ladder else "sweep": rows}))
     return rows
 
 

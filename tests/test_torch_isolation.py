@@ -113,7 +113,8 @@ from elevenrender_tpu_torch.ops.sort import sort_for_packets
 rows = sweep_traverse.main(["--device", "cpu", "--grids", "10", "--res", "16",
                             "--reps", "1", "--frontiers", "2,4"])
 kernels = sorted({r["kernel"] for r in rows})
-assert kernels == ["binary", "frontier=2", "frontier=4", "wide"], kernels
+assert kernels == ["binary", "binary-v1", "frontier=2", "frontier=4",
+                   "wide"], kernels
 z = torch.rand((64, 3))
 order, inverse = sort_for_packets(z, z, z.min(0).values, z.max(0).values,
                                   impl="counting")
@@ -122,7 +123,7 @@ print("swept", len(rows))
 """
     res = _run(code)
     assert res.returncode == 0, res.stderr
-    assert "swept 14" in res.stdout
+    assert "swept 18" in res.stdout
 
 
 def test_new_walks_refuse_other_devices_and_never_fall_back():
@@ -140,8 +141,8 @@ def test_new_walks_refuse_other_devices_and_never_fall_back():
         tt.traverse({}, z, z, 3, frontier=4)
     with pytest.raises(ValueError, match="unsupported device"):
         bvh_wide.traverse_wide(None, None, None, z, z, 3)
-    assert set(kernels.LIBRARIES) == {"bvh_traverse", "bvh_frontier",
-                                      "bvh_wide"}
+    assert set(kernels.LIBRARIES) == {"bvh_traverse", "bvh_traverse_v1",
+                                      "bvh_frontier", "bvh_wide"}
     for sources, _, headers in kernels.LIBRARIES.values():
         assert all((kernels.CSRC / f).exists() for f in sources + headers)
         assert "bvh_common.cuh" in headers
@@ -157,9 +158,12 @@ def test_new_walks_refuse_other_devices_and_never_fall_back():
     with pytest.raises((RuntimeError, OSError)):
         tt._launch_frontier(ir["kernel"], o, d, cfg.bvh_depth, 4, None, None)
     with pytest.raises((RuntimeError, OSError)):
+        tt._launch_v1(ir["kernel"], o, d, cfg.bvh_depth, None, None)
+    with pytest.raises((RuntimeError, OSError)):
         bvh_wide._launch(wide["nodes8"], wide["leaf8"], ir["kernel"]["tris"],
                          o, d, cfg.bvh_depth)
     assert tt.frontier_launches == 0 and tt.wide_launches == 0
+    assert tt.v1_launches == 0 and not tt.variant_launches
 
 
 def test_a_changed_header_changes_the_library_hash(tmp_path, monkeypatch):

@@ -28,6 +28,11 @@ residencies, closest-hit and any-hit, and its closest-hit counters to the
 Pallas kernel's on a one-ray tile.  Any-hit counters are compared with
 nothing here: a one-ray tile of the TPU kernel goes on popping after the
 ray is resolved, a ray of the port stops.
+
+``traverse_v1`` (the kernel's first version, the sweep's "binary-v1") is on
+the CPU the same plain walk, held to the Pallas kernel the same way; the
+persistent grid's shape, the work counter, the block's stack bytes and
+the sweep's lever ladder are checked as host-side pure functions.
 """
 
 import dataclasses
@@ -42,6 +47,8 @@ from elevenrender_tpu.ops.bvh import brute_force as jax_brute_force
 from elevenrender_tpu.ops.bvh import build_bvh as jax_build_bvh
 from elevenrender_tpu.ops.bvh_pallas import (pack_bvh_for_pallas,
                                              traverse_pallas)
+from elevenrender_tpu_torch import kernels
+from elevenrender_tpu_torch import sweep_traverse as sweep
 from elevenrender_tpu_torch.convert import ir_from_numpy
 from elevenrender_tpu_torch.ops import traverse as tt
 
@@ -536,3 +543,107 @@ def test_wrapper_refuses_tables_it_cannot_serve(case, monkeypatch):
     monkeypatch.setattr(tt, "MAX_ROWS", o.shape[0] - 1)
     with pytest.raises(ValueError, match="32-bit"):
         tt._launch(case["tables"], o, d, case["depth"], None, None)
+
+
+def test_v1_walk_on_the_cpu_is_the_plain_walk(case):
+    """The first version's wrapper runs ``traverse_plain`` on CPU tensors
+    (and launches nothing): the same ids, t and counters as ``traverse``,
+    closest-hit and any-hit, and so the Pallas kernel's hits."""
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    exclude, t_max = map(torch.tensor, _any_hit_inputs(case))
+    tt.reset_counts()
+    for query in ((None, None), (exclude, t_max)):
+        got = tt.traverse_v1(case["tables"], o, d, case["depth"], *query,
+                             count_steps=True)
+        ref = tt.traverse(case["tables"], o, d, case["depth"], *query,
+                          count_steps=True)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert tt.v1_launches == 0 and not tt.variant_launches
+    ji, jt = (np.asarray(a) for a in case["jax"])
+    vi, vt = (a.numpy() for a in tt.traverse_v1(case["tables"], o, d,
+                                                case["depth"]))
+    np.testing.assert_array_equal(vi >= 0, ji >= 0)
+    hit = ji >= 0
+    np.testing.assert_allclose(vt[hit], jt[hit], rtol=2e-6)
+    with pytest.raises(ValueError, match="together"):
+        tt.traverse_v1(case["tables"], o, d, case["depth"], exclude)
+
+
+@pytest.mark.parametrize("n,sms,blocks,grid", [
+    (1 << 20, 132, 9, 132 * 9),   # a full launch: every block that fits
+    (1 << 20, 132, 16, 132 * 16),
+    (5 * 128, 132, 9, 5),         # few rays: a block per 4 runs of 32
+    (5 * 128 + 1, 132, 9, 6),
+    (100, 132, 9, 1),
+    (0, 132, 9, 1)])
+def test_persistent_grid_shape(n, sms, blocks, grid):
+    assert tt.persistent_grid(n, sms, blocks) == grid
+    assert tt.THREADS == 128 and tt.RUN == 32
+
+
+def test_persistent_grid_refuses_a_kernel_that_does_not_fit():
+    with pytest.raises(ValueError, match="fit"):
+        tt.persistent_grid(1024, 132, 0)
+
+
+def test_work_counter_and_stack_bytes():
+    """The work counter is one int32 on the rays' device; a block's
+    dynamic shared memory is depth - 1 stack entries of 4 bytes for each
+    of its threads (at least one entry)."""
+    w = tt.work_counter("cpu")
+    assert w.shape == (1,) and w.dtype == torch.int32
+    assert w.device.type == "cpu"
+    assert tt.stack_bytes(11) == 10 * 128 * 4
+    assert tt.stack_bytes(15) == 14 * 512
+    assert tt.stack_bytes(1) == tt.stack_bytes(2) == 512
+    # A stack entry is (node << 5) | depth in an int32.
+    nodes = (1 << (tt.MAX_DEPTH + 1)) - 1
+    assert (nodes - 1) << 5 | tt.MAX_DEPTH < 2**31
+
+
+@pytest.mark.parametrize("depth", [0, tt.MAX_DEPTH + 1])
+def test_launch_refuses_a_depth_the_stack_cannot_hold(case, depth):
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    for launch in (tt._launch, tt._launch_v1):
+        with pytest.raises(ValueError, match="depth"):
+            launch(case["tables"], o, d, depth, None, None)
+
+
+def test_ladder_steps_are_separate_builds():
+    """Each step of the sweep's lever ladder is the binary kernel built
+    with its levers' defines: a library of its own, named apart in the
+    build log; the last full step is the default build."""
+    targets = {}
+    for label, defines in sweep.LADDER:
+        if defines is None:
+            assert label == sweep.V1
+            continue
+        out, cmd = kernels._target("bvh_traverse", defines)
+        assert all(f"-D{d}" in cmd for d in defines)
+        targets[out] = label
+    assert len(targets) == len(sweep.LADDER) - 1
+    assert kernels._target("bvh_traverse", ())[0] in targets
+    assert kernels.label("bvh_traverse", ("BVH_REFILL=0",)) == \
+        "bvh_traverse[BVH_REFILL=0]"
+    assert kernels.label("bvh_traverse") == "bvh_traverse"
+    with pytest.raises(SystemExit):
+        sweep.main(["--device", "cpu", "--ladder"])
+
+
+def test_sweep_holds_binary_v1_to_the_binary_walk_exactly(case):
+    """On the CPU the sweep runs binary-v1's plain walk beside the binary
+    walk's and holds the two to each other: ids, t and counters equal;
+    a single changed counter is refused."""
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    walk = dict(tables=case["tables"], depth=case["depth"])
+    rows = sweep.sweep_ray_set(walk, "case", "rays", (o, d, None, None),
+                               [sweep.BINARY, sweep.V1], reps=1)
+    assert [r["kernel"] for r in rows] == [sweep.BINARY, sweep.V1]
+    assert rows[0]["counters"] == rows[1]["counters"]
+    assert rows[1]["ties"] == rows[1]["near_ties"] == 0
+    ref = tt.traverse(case["tables"], o, d, case["depth"], count_steps=True)
+    bad = ref[2].clone()
+    bad[0, 3] += 1
+    with pytest.raises(RuntimeError, match="counters"):
+        sweep.same_walk("case", ref, (ref[0], ref[1], bad))

@@ -238,7 +238,8 @@ def test_sweep_entry_point_runs_on_the_cpu(capsys):
                                 "32", "--reps", "1"])
     out = capsys.readouterr().out
     assert out.strip().splitlines()[-1].startswith('{"sweep": [')
-    closest = ["binary", "frontier=2", "frontier=4", "frontier=8", "wide"]
+    closest = ["binary", "binary-v1", "frontier=2", "frontier=4",
+               "frontier=8", "wide"]
     by_set = {}
     for r in rows:
         by_set.setdefault(r["ray_set"], []).append(r["kernel"])
@@ -248,5 +249,7 @@ def test_sweep_entry_point_runs_on_the_cpu(capsys):
         assert len(r["counters"]) == 4 and r["counters"][0] >= 1
     assert by_set == {"coherent": closest, "sorted-incoherent": closest,
                       "recorded bounce 1": closest,
-                      "recorded shadow": ["binary", "frontier=4"]}
+                      "recorded shadow": ["binary", "binary-v1",
+                                          "frontier=4"]}
     assert tt.launches == 0 and tt.frontier_launches == 0
+    assert tt.v1_launches == 0
