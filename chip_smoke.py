@@ -12,7 +12,10 @@ result line is printed):
     ray refill, while-while leaf rounds, warp-shared leaf scans, the stack
     in shared memory) against its plain PyTorch version on the 65,522-tri
     heightfield: camera rays, random rays, and the random rays as any-hit
-    queries;
+    queries; then the first 65,535, 33, 31 and 1 random rays, closest-hit
+    and any-hit with count_steps (ray counts that leave the last run of 32
+    short, or most of the persistent grid without rays): ids, t and
+    counters equal;
  4. the main path: the native forward render step on that scene at
     1024x1024, 5 bounces, through Renderer.step (1 warm-up sample, then 8
     timed), with the kernel's launch counts;
@@ -24,7 +27,8 @@ result line is printed):
     version's time, and the bound from the kernel's own counters;
  7. config 5: the 999,698-tri textured heightfield with a point light
     (build time, BVH depth and largest leaf), and the kernel against its
-    plain version there, as in phase 3; its tri table (45.8 MiB) no
+    plain version there, as in phase 3, ragged ray counts included; its
+    tri table (45.8 MiB) no
     longer fits beside the rest in the card's 50 MB L2;
  8. the config-5 path: its native forward step at 1024x1024, 5 bounces
     (1 warm-up sample, then 4 timed), 5 closest-hit launches of 1M rays
@@ -43,7 +47,8 @@ result line is printed):
     ties;
 12. the variants timed at both paths' recorded shapes beside the default
     kernel, their mean counters per ray, and each bound from the
-    kernel's own counters;
+    kernel's own counters; the noscan/skip probes keep the default's
+    schedule and grid, so they split its time into walk and scans;
 13. the gradient path at 64x64, 5 bounces, 4 samples, card against CPU,
     on the untextured and the textured, lit scene: loss and every
     material gradient leaf; a replayed pass 2 equals a re-traced one
@@ -82,6 +87,9 @@ import sys
 import time
 
 CONFIG5_TRIS = 999698
+# Ray counts of phase 3's ragged checks: a tail of 31 after 2047 full runs
+# of 32, one run and a ray, less than a run, a single ray.
+RAGGED = (65535, 33, 31, 1)
 
 
 def fail(msg):
@@ -224,9 +232,30 @@ def main():
               f"|t - t_plain| {err:.3g}")
         return pi
 
+    def check_ragged(tables, depth, label, o, d, closest, t_max):
+        """The persistent grid's ray hand-out at ray counts that are not a
+        multiple of a warp's run of 32, that leave the last run short or
+        the grid part empty: the first n random rays, closest-hit and
+        any-hit, with count_steps.  ids, t and counters equal to the
+        plain version's on every ray."""
+        for n_ in RAGGED:
+            for mode, ex, tm in (("closest", None, None),
+                                 ("any-hit", closest[:n_], t_max[:n_])):
+                args = (tables, o[:n_], d[:n_], depth, ex, tm)
+                got = tr.traverse(*args, count_steps=True)
+                ref = tr.traverse_plain(*args, count_steps=True)
+                for what, a, b in zip(("ids", "t", "counters"), got, ref):
+                    if not torch.equal(a, b):
+                        fail(f"{label} {n_} random rays {mode}: {what} "
+                             f"differ from the plain version's")
+        print(f"[kernel] {label} random rays cut to {RAGGED} rays, "
+              f"closest-hit and any-hit with count_steps: ids, t and "
+              f"counters equal to the plain version's")
+
     def check_scene(ir, depth, label):
         """Camera rays, random rays around the scene's box, and those as
-        any-hit queries with half of them under a finite t_max."""
+        any-hit queries with half of them under a finite t_max; then the
+        random rays cut to ragged counts (check_ragged)."""
         tables = ir["kernel"]
         dev = tables["boxes"].device
         nr = 65536
@@ -253,6 +282,8 @@ def main():
                                       ).astype(np.float32), device=dev)
         check(tables, depth, f"{label} random rays", rnd_o, rnd_d,
               closest.to(torch.int32), t_max)
+        check_ragged(tables, depth, label, rnd_o, rnd_d,
+                     closest.to(torch.int32), t_max)
         return {"camera rays": (cam_o, cam_d, cam_closest.to(torch.int32),
                                 t_max),
                 "random rays": (rnd_o, rnd_d, closest.to(torch.int32),
@@ -313,9 +344,9 @@ def main():
 
     def time_kernel(tables, depth, o, d, ex, tm, reps=20, **variant):
         """Median of ``reps`` launches, each between two CUDA events."""
-        return sweep.time_in_turns(
+        return float(np.median(sweep.times_in_turns(
             {"kernel": lambda: tr._launch(tables, o, d, depth, ex, tm,
-                                          **variant)}, reps, True)["kernel"]
+                                          **variant)}, reps, True)["kernel"]))
 
     def bound_of(tables, counts, any_hit, leaf_aabb=0):
         """sweep_traverse.bound_of for the binary kernel's variants: the
@@ -484,7 +515,10 @@ def main():
     def time_variants(label, tables, depth, recorded, plain_ms):
         """Each variant's time per launch at the path's recorded bounce-1
         and shadow launches beside the default's, its mean counters per
-        ray (from its own count_steps launch) and its bound."""
+        ray (from its own count_steps launch) and its bound.  For the
+        probes, which walk more than the default (best_t never falls),
+        also the walk's estimated share of a default launch: the probe's
+        time x the default's visits / the probe's visits."""
         out = {}
         variants = ([("near", 0, "full", False), ("near", 0, "full", True)]
                     + [(o_, a_, "full", False) for o_, a_ in RENDER_VARIANTS
@@ -500,10 +534,11 @@ def main():
                              leaf_mode=leaf_mode)
                 ms = time_kernel(tables, depth, o, d, ex, tm,
                                  count_steps=count, **flags)
-                if default_ms is None:
-                    default_ms = ms
                 _, _, cnt = tr.traverse(tables, o, d, depth, ex, tm,
                                         count_steps=True, **flags)
+                visits = float(cnt[:, 0].float().mean())
+                if default_ms is None:
+                    default_ms, default_visits = ms, visits
                 b = bound_of(tables, cnt, ex is not None,
                              leaf_aabb if leaf_mode == "full" else 0)
                 means = [round(float(c), 2)
@@ -519,7 +554,12 @@ def main():
                       f"count_steps={count}: {ms:.3f} ms/launch "
                       f"({ms / default_ms:.2f}x the default), per ray "
                       f"[visits, leaf visits, groups, tri tests] {means}, "
-                      f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                      f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+                      + (f"; at the default's {default_visits:.2f} visits "
+                         f"{ms * default_visits / visits:.3f} ms "
+                         f"({ms * default_visits / visits / default_ms:.0%}"
+                         f" of the default)"
+                         if leaf_mode != "full" else ""))
         return out
 
     def make_target(cfg, ir_, device):
@@ -824,9 +864,10 @@ def main():
                            torch.arange(o.shape[0], device=o.device)):
             fail("counting_order: inverse[order[i]] != i")
         buckets = int(torch.unique(key >> 24).numel())
-        sort_ms = sweep.time_in_turns(
+        sort_ms = {k: float(np.median(v)) for k, v in sweep.times_in_turns(
             {"counting": lambda: sort_ops.counting_order(key),
-             "argsort": lambda: torch.sort(key, stable=True)}, 20, True)
+             "argsort": lambda: torch.sort(key, stable=True)}, 20,
+            True).items()}
         print(f"[counting] counting_order of {o.shape[0]} recorded bounce-1 "
               f"keys ({buckets} of 256 buckets used): card == CPU, "
               f"{sort_ms['counting']:.3f} ms; a stable sort of the full keys "

@@ -51,7 +51,12 @@
 //              skips the group.  A pure cull: ids and t are mode 0's.
 //   kLeafMode  (leaf_mode): 1 = "noscan", the leaf step without its
 //              triangle tests; 2 = "skip", no leaf step at all.  Timing
-//              probes: every ray misses, by design.
+//              probes: every ray misses, by design.  A probe keeps the
+//              full scan's schedule (a lane waits at every leaf parent
+//              that a child's box passes, and its warp makes the scan
+//              round with empty lists) and is launched on the full scan's
+//              grid, so what it saves is the scans' (and the leaf row's)
+//              share of that kernel's time.
 //
 // What bounds it on this card: fp32 arithmetic on the CUDA cores (about
 // 50 ops per visit, 55 per triangle test, 25 per group box) against a few
@@ -83,34 +88,12 @@
 //     laid out [entry][thread] (a warp's 32 entries of one level fall in
 //     32 banks), depth - 1 entries a thread (entries on the stack have
 //     strictly rising depths in [1, depth - 1]).
-// Each lever can be turned off at build time, for the ladder that
-// sweep_traverse.py --ladder times against the v1 kernel: -DBVH_REFILL=0
-// (one ray per thread, a grid over the rays), -DBVH_POSTPONE=0 (one visit
-// per loop iteration, scans inline), -DBVH_SHARED_SCAN=0 (each lane scans
-// its own ranges), -DBVH_SCANS_WAIT=0 (a lane waits at every leaf parent),
-// -DBVH_REFILL_AT=1 (a warp refills as soon as one lane is idle).
 // Tried and dropped (PERF.md): an L1 prefetch of both children's box rows;
 // __launch_bounds__ for 10-16 blocks an SM (spills); refilling a lane
 // during the walk, and scanning once 1-16 lanes wait instead of all (more
 // registers, one block less an SM): each slower.
 
 #include "bvh_common.cuh"
-
-#ifndef BVH_POSTPONE
-#define BVH_POSTPONE 1
-#endif
-#ifndef BVH_REFILL
-#define BVH_REFILL 1
-#endif
-#ifndef BVH_SHARED_SCAN
-#define BVH_SHARED_SCAN 1
-#endif
-#ifndef BVH_SCANS_WAIT
-#define BVH_SCANS_WAIT 1
-#endif
-#ifndef BVH_REFILL_AT
-#define BVH_REFILL_AT 8
-#endif
 
 namespace {
 
@@ -121,7 +104,7 @@ constexpr int kDepthBits = 5;
 // A warp refills its idle lanes once this many are idle: fewer, larger
 // refills keep a warp's rays neighbours in the sort (the ladder's last
 // step against refilling every idle lane at once, PERF.md).
-constexpr int kRefillAt = BVH_REFILL_AT;
+constexpr int kRefillAt = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Scans one leaf's range [from, to): every slot (kLeafAabb == 0), or
@@ -268,7 +251,8 @@ __device__ __forceinline__ bool interior(const Tables& tb, Lane& w,
 
 // The part of a leaf-parent visit before its scans: both children's box
 // tests and the leaf row.  Where the probe skips the leaf step (kLeafMode
-// 2), neither child is entered.
+// 2), the leaf row is not read and the step is not counted; l_over and
+// r_over still say where the full scan would wait.
 template <bool kCount, int kLeafMode>
 __device__ __forceinline__ void leaf_boxes(const Tables& tb, Lane& w,
                                            int4& lf, bool& l_over,
@@ -277,47 +261,27 @@ __device__ __forceinline__ void leaf_boxes(const Tables& tb, Lane& w,
   float l_near, r_near;
   children(tb, w, l_over, l_near, r_over, r_near);
   if constexpr (kCount) ++w.visits;
-  if constexpr (kLeafMode == 2) l_over = r_over = false;
-  if constexpr (kCount) w.leaf += (l_over || r_over) ? 1 : 0;
+  if constexpr (kCount && kLeafMode != 2) w.leaf += (l_over || r_over) ? 1 : 0;
 }
 
-// A lane's own scans at a leaf parent: the right child's range, then the
-// left's.  True when an any-hit ray is resolved.
-template <bool kAny, bool kCount, int kLeafAabb, int kLeafMode>
+// A lane's own scans at a leaf parent (leaf_aabb 1 and 2): the right
+// child's range, then the left's.  True when an any-hit ray is resolved.
+template <bool kAny, bool kCount, int kLeafAabb>
 __device__ __forceinline__ bool own_scans(const Tables& tb, Lane& w,
                                           int4 lf, bool l_over, bool r_over) {
   if (r_over) {
     if constexpr (kCount) w.groups += groups_of_8(lf.z, lf.w);
-    if constexpr (kLeafMode == 0) {
-      if (scan<kCount, kLeafAabb>(tb.tris, tb.groups, lf.z, lf.w, w.r, kAny,
-                                  w.excl, w.best_idx, w.best_t, w.tests))
-        return true;
-    }
+    if (scan<kCount, kLeafAabb>(tb.tris, tb.groups, lf.z, lf.w, w.r, kAny,
+                                w.excl, w.best_idx, w.best_t, w.tests))
+      return true;
   }
   if (l_over) {
     if constexpr (kCount) w.groups += groups_of_8(lf.x, lf.y);
-    if constexpr (kLeafMode == 0) {
-      if (scan<kCount, kLeafAabb>(tb.tris, tb.groups, lf.x, lf.y, w.r, kAny,
-                                  w.excl, w.best_idx, w.best_t, w.tests))
-        return true;
-    }
+    if (scan<kCount, kLeafAabb>(tb.tris, tb.groups, lf.x, lf.y, w.r, kAny,
+                                w.excl, w.best_idx, w.best_t, w.tests))
+      return true;
   }
   return false;
-}
-
-// A visit of a leaf parent by one lane alone (the loop without
-// postponement): boxes, own scans, then a pop.  False when the walk is
-// over (stack empty, or any-hit resolved).
-template <bool kAny, bool kCount, int kLeafAabb, int kLeafMode>
-__device__ __forceinline__ bool leaf_parent(const Tables& tb, Lane& w,
-                                            const int* stack) {
-  int4 lf;
-  bool l_over, r_over;
-  leaf_boxes<kCount, kLeafMode>(tb, w, lf, l_over, r_over);
-  if (own_scans<kAny, kCount, kLeafAabb, kLeafMode>(tb, w, lf, l_over,
-                                                    r_over))
-    return false;
-  return pop(w, stack);
 }
 
 // The scans of a leaf round shared by the warp (kLeafAabb 0, full scan).
@@ -336,15 +300,17 @@ __device__ __forceinline__ bool leaf_parent(const Tables& tb, Lane& w,
 // counter counts what the one-by-one scan would have tested (the whole
 // list, or up to the any-hit), not the tests past an any-hit that a
 // group round also made.  True when an any-hit ray is resolved.  Every
-// lane of the warp calls it; lanes without a scan pass total = 0.
-template <bool kAny, bool kCount>
+// lane of the warp calls it; lanes without a scan pass l_over = r_over =
+// false.  The probes (kLeafMode 1, 2) make the round with every list
+// empty; "noscan" still counts the groups it would have entered.
+template <bool kAny, bool kCount, int kLeafMode>
 __device__ __forceinline__ bool shared_scans(const float4* __restrict__ tris,
                                              Lane& w, int4 lf, bool l_over,
                                              bool r_over) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
-  const int len_a = r_over ? lf.w - lf.z : 0;
-  const int total = len_a + (l_over ? lf.y - lf.x : 0);
+  const int len_a = kLeafMode == 0 && r_over ? lf.w - lf.z : 0;
+  const int total = len_a + (kLeafMode == 0 && l_over ? lf.y - lf.x : 0);
   int next = 0;
   bool resolved = false;
   for (;;) {
@@ -423,7 +389,7 @@ __device__ __forceinline__ bool shared_scans(const float4* __restrict__ tris,
       if (!resolved) next = min(next + q, total);
     }
   }
-  if constexpr (kCount) {
+  if constexpr (kCount && kLeafMode != 2) {
     w.tests += resolved ? next : total;
     if (r_over) w.groups += groups_of_8(lf.z, lf.w);
     // An any-hit ray resolved in the right child never enters the left.
@@ -478,20 +444,10 @@ bvh_traverse_walk(Tables tb, Rays io, int* __restrict__ next_ray, int n,
   int* const stack = stack_columns + threadIdx.x;
   Lane w;
   w.ray = -1;
-#if BVH_REFILL
   Run run;
-#else
-  {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i < n) start<kAny>(w, i, io);
-  }
-#endif
   for (;;) {
-#if BVH_REFILL
     refill<kAny>(w, run, next_ray, n, io);
-#endif
     if (!__any_sync(kFull, w.ray >= 0)) break;
-#if BVH_POSTPONE
     // The walk: interior visits, and leaf-parent visits that scan nothing,
     // until the lane's next step is a scan (it waits there for the rest
     // of the warp) or its ray ends.
@@ -504,34 +460,22 @@ bvh_traverse_walk(Tables tb, Rays io, int* __restrict__ next_ray, int n,
         continue;
       }
       leaf_boxes<kCount, kLeafMode>(tb, w, lf, l_over, r_over);
-      waits = !BVH_SCANS_WAIT || (kLeafMode == 0 && (l_over || r_over));
-      if (!waits) {
-        own_scans<kAny, kCount, kLeafAabb, kLeafMode>(tb, w, lf, l_over,
-                                                      r_over);
-        if (!pop(w, stack)) finish<kCount>(w, io);
-      }
+      waits = l_over || r_over;
+      if (!waits && !pop(w, stack)) finish<kCount>(w, io);
     }
     __syncwarp();
     // The scans, made by the waiting lanes together: shared across the
-    // warp for the full scan of kLeafAabb 0, else each lane's own.
+    // warp for the full scan of kLeafAabb 0 (and the probes' empty one),
+    // else each lane's own.
     bool resolved = false;
-    if constexpr (BVH_SHARED_SCAN && kLeafAabb == 0 && kLeafMode == 0) {
-      resolved = shared_scans<kAny, kCount>(tb.tris, w, lf, l_over && waits,
-                                            r_over && waits);
+    if constexpr (kLeafAabb == 0) {
+      resolved = shared_scans<kAny, kCount, kLeafMode>(
+          tb.tris, w, lf, l_over && waits, r_over && waits);
     } else if (waits) {
-      resolved = own_scans<kAny, kCount, kLeafAabb, kLeafMode>(
-          tb, w, lf, l_over, r_over);
+      resolved = own_scans<kAny, kCount, kLeafAabb>(tb, w, lf, l_over,
+                                                    r_over);
     }
     if (waits && (resolved || !pop(w, stack))) finish<kCount>(w, io);
-#else
-    if (w.ray >= 0) {
-      const bool going =
-          w.ndep == depth - 1
-              ? leaf_parent<kAny, kCount, kLeafAabb, kLeafMode>(tb, w, stack)
-              : interior<kCount, kSign>(tb, w, stack, depth);
-      if (!going) finish<kCount>(w, io);
-    }
-#endif
   }
 }
 
@@ -573,18 +517,29 @@ size_t stack_bytes(int depth) {
 extern "C" {
 
 // The blocks of the variant that fit on one SM together at this depth,
-// into *blocks; returns the cudaError_t of the query.
+// into *blocks; returns the cudaError_t of the query.  A probe (leaf_mode
+// 1, 2) answers for the full scan it probes, whose grid it is launched on:
+// with fewer registers more of its blocks would fit, and the probe would
+// then time another occupancy.
 int bvh_traverse_blocks_per_sm(int any_hit, int count_steps, int sign_order,
                                int leaf_aabb, int leaf_mode, int depth,
                                int* blocks) {
-  const Kernel kernel =
-      pick(any_hit, count_steps, sign_order, leaf_aabb, leaf_mode);
+  if (leaf_mode < 0 || leaf_mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Kernel kernel = pick(any_hit, count_steps, sign_order,
+                             leaf_mode == 0 ? leaf_aabb : 0, 0);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, kThreads, stack_bytes(depth)));
 }
 
 int bvh_traverse_threads() { return kThreads; }
+
+// The dynamic shared memory of one block at this depth (its threads'
+// stacks), in bytes.
+int bvh_traverse_stack_bytes(int depth) {
+  return static_cast<int>(stack_bytes(depth));
+}
 
 // (node << 5) | depth in an int: nodes below 2^26, so depth <= 25.
 int bvh_traverse_max_depth() { return 25; }
@@ -613,13 +568,9 @@ int bvh_traverse(const void* boxes, const void* leaves, const void* tris,
       grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-#if BVH_REFILL
   const cudaError_t zeroed = cudaMemsetAsync(
       next_ray, 0, sizeof(int), static_cast<cudaStream_t>(stream));
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-#else
-  grid = (n + kThreads - 1) / kThreads;
-#endif
   const Tables tb{static_cast<const float4*>(boxes),
                   static_cast<const int4*>(leaves),
                   static_cast<const float4*>(tris),

@@ -9,9 +9,6 @@ its sources, the headers they share and its flags, so a changed source or
 header rebuilds and an unchanged one loads at once.  A failed build raises with nvcc's output.
 A library's nvcc log (ptxas's resource report) is kept beside it, so a
 library found built reports the same ``build_info``.
-A library may also be built with extra preprocessor definitions
-(``defines``, e.g. ``("BVH_REFILL=0",)``), as a library of its own beside
-the default one: the traversal sweep's ladder builds its steps so.
 """
 
 from __future__ import annotations
@@ -42,14 +39,9 @@ LIBRARIES = {
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[tuple, ctypes.CDLL] = {}
-# label -> {"seconds": build time or 0.0 when cached, "log": nvcc output};
-# the label is the library's name, with its defines in brackets if any.
+_loaded: dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": build time or 0.0 when cached, "log": nvcc output}
 build_info: dict[str, dict] = {}
-
-
-def label(name: str, defines=()) -> str:
-    return f"{name}[{' '.join(defines)}]" if defines else name
 
 
 def _nvcc() -> str:
@@ -64,9 +56,8 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build CUDA kernels")
 
 
-def _target(name: str, defines=()) -> tuple[Path, list[str]]:
+def _target(name: str) -> tuple[Path, list[str]]:
     sources, flags, headers = LIBRARIES[name]
-    flags = (*flags, *(f"-D{d}" for d in defines))
     paths = [CSRC / s for s in sources]
     h = hashlib.sha256()
     for p in paths + [CSRC / s for s in headers]:
@@ -77,24 +68,22 @@ def _target(name: str, defines=()) -> tuple[Path, list[str]]:
     return out, cmd
 
 
-def build_all(targets=None) -> None:
-    """Build every library of ``targets`` (all by default; each a name or
-    a (name, defines) pair) that is not built yet: one nvcc process per
+def build_all(names=None) -> None:
+    """Build every library that is not built yet, one nvcc process per
     library, all started together."""
-    targets = list(LIBRARIES) if targets is None else list(targets)
+    names = list(LIBRARIES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for target in targets:
-        name, defines = (target, ()) if isinstance(target, str) else target
-        out, cmd = _target(name, defines)
+    for name in names:
+        out, cmd = _target(name)
         if out.exists():
             log = out.with_suffix(".log")
-            build_info.setdefault(label(name, defines), {
+            build_info.setdefault(name, {
                 "seconds": 0.0,
                 "log": log.read_text() if log.exists() else "cached"})
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[label(name, defines)] = (subprocess.Popen(
+        procs[name] = (subprocess.Popen(
             [_nvcc(), *cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out, time.time())
     errors = []
@@ -111,15 +100,13 @@ def build_all(targets=None) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def load(name: str, defines=()) -> ctypes.CDLL:
-    """The loaded library ``name`` (with ``defines``), built first if
-    needed."""
-    key = (name, tuple(defines))
-    lib = _loaded.get(key)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _loaded.get(name)
     if lib is None:
-        out, _ = _target(name, defines)
+        out, _ = _target(name)
         if not out.exists():
-            build_all([(name, tuple(defines))])
+            build_all([name])
         lib = ctypes.CDLL(str(out))
-        _loaded[key] = lib
+        _loaded[name] = lib
     return lib

@@ -9,7 +9,8 @@ Möller-Trumbore arithmetic and any-hit rule, so the two give the same
 ids and bit-equal t.  ``brute_force`` tests every tri, for tiny scenes.
 
 The kernel runs a persistent grid (``persistent_grid``: the SMs times the
-blocks of the variant that fit on one) whose warps take rays from a
+blocks of the variant that fit on one; a probe runs on its full scan's
+grid) whose warps take rays from a
 zeroed int32 work counter (``work_counter``).  ``traverse_v1`` launches
 the kernel's first version, ``csrc/bvh_traverse_v1.cu`` (one thread per
 ray, default variant only), which the traversal sweep times it against;
@@ -249,22 +250,22 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-# defines -> the loaded binary kernel library built with them (the
-# default build has none; sweep_traverse's ladder builds the others).
-_libs: dict = {}
+_lib = None
 
 
-def _library(defines=()):
-    lib = _libs.get(defines)
-    if lib is None:
+def _library():
+    global _lib
+    if _lib is None:
         from .. import kernels
-        lib = kernels.load("bvh_traverse", defines)
+        lib = kernels.load("bvh_traverse")
         p = ctypes.c_void_p
         i = ctypes.c_int
         lib.bvh_traverse.argtypes = [p] * 13 + [i] * 8 + [p]
         lib.bvh_traverse.restype = ctypes.c_int
         lib.bvh_traverse_blocks_per_sm.argtypes = [i] * 6 + [p]
         lib.bvh_traverse_blocks_per_sm.restype = ctypes.c_int
+        lib.bvh_traverse_stack_bytes.argtypes = [i]
+        lib.bvh_traverse_stack_bytes.restype = ctypes.c_int
         lib.bvh_traverse_error_string.argtypes = [ctypes.c_int]
         lib.bvh_traverse_error_string.restype = ctypes.c_char_p
         for fn, want in ((lib.bvh_traverse_threads, THREADS),
@@ -274,8 +275,8 @@ def _library(defines=()):
             if fn() != want:
                 raise RuntimeError(f"csrc/bvh_traverse.cu {fn.__name__} is "
                                    f"{fn()}, ops/traverse.py expects {want}")
-        _libs[defines] = lib
-    return lib
+        _lib = lib
+    return _lib
 
 
 def persistent_grid(n: int, sm_count: int, blocks_per_sm: int) -> int:
@@ -298,18 +299,19 @@ def work_counter(device) -> torch.Tensor:
 
 
 def stack_bytes(depth: int) -> int:
-    """Dynamic shared memory of one block of the binary kernel: its
-    threads' stacks, depth - 1 entries of one int32 each (at least one)."""
-    return max(depth - 1, 1) * THREADS * 4
+    """Dynamic shared memory of one block of the binary kernel at
+    ``depth``, its threads' stacks, as the C side launches it (loads the
+    library: card only)."""
+    return _library().bvh_traverse_stack_bytes(depth)
 
 
-# (device index, defines, variant flags, depth) -> (SMs, blocks of that
-# variant per SM).
+# (device index, variant flags, depth) -> (SMs, blocks of that variant per
+# SM; a probe's are its full scan's).
 _occupancy: dict = {}
 
 
-def _fit(lib, defines, dev, depth, flags):
-    key = (dev.index, defines, flags, depth)
+def _fit(lib, dev, depth, flags):
+    key = (dev.index, flags, depth)
     fit = _occupancy.get(key)
     if fit is None:
         out = ctypes.c_int(0)
@@ -328,8 +330,7 @@ def blocks_per_sm(device, depth: int, any_hit: bool = False) -> int:
     ``device`` at ``depth``: the persistent grid's second factor."""
     dev = torch.device(device)
     with torch.cuda.device(dev):
-        return _fit(_library(), (), dev, depth,
-                    (int(any_hit), 0, 0, 0, 0))[1]
+        return _fit(_library(), dev, depth, (int(any_hit), 0, 0, 0, 0))[1]
 
 
 # (data_ptr, version, tri rows) of leaf tables already checked.
@@ -394,9 +395,7 @@ def _check_depth(depth):
 
 
 def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
-            leaf_aabb=0, leaf_mode="full", count_steps=False, defines=()):
-    """One launch of csrc/bvh_traverse.cu; ``defines`` picks a build of
-    it with levers turned off (sweep_traverse's ladder)."""
+            leaf_aabb=0, leaf_mode="full", count_steps=False):
     global launches, any_hit_launches
     check_variant(order, leaf_aabb, leaf_mode)
     dev = ray_o.device
@@ -415,11 +414,11 @@ def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
     any_hit = exclude is not None
     idx, t, counts = _outputs(n, dev, count_steps)
     work = work_counter(dev)
-    lib = _library(defines)
+    lib = _library()
     flags = (int(any_hit), int(count_steps), int(order == "sign"),
              leaf_aabb if scans else 0, LEAF_MODES.index(leaf_mode))
     with torch.cuda.device(dev):
-        grid = persistent_grid(n, *_fit(lib, defines, dev, depth, flags))
+        grid = persistent_grid(n, *_fit(lib, dev, depth, flags))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bvh_traverse(
             _ptr(tables["boxes"]), _ptr(tables["leaves"]),

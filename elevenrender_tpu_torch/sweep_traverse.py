@@ -4,7 +4,7 @@ rays.
 
     python3 -m elevenrender_tpu_torch.sweep_traverse [--grids 182,708]
         [--res 1024] [--frontiers 2,4,8] [--reps 20] [--seed 0]
-        [--device cuda|cpu] [--ladder]
+        [--device cuda|cpu]
 
 The port's counterpart of the JAX package's ``scripts/sweep_trav_kernels.py``
 and ``scripts/sweep_frontier.py`` in one module.  Each scene comes from
@@ -33,12 +33,6 @@ last line is one JSON object with every row.
 With ``--device cpu`` the same code runs the kernels' plain versions, for
 the tests, at a small size (``--grids 12 --res 32``); its times are host
 times of PyTorch on the CPU and say nothing about the card.
-
-``--ladder`` (card only) times instead what each lever of the binary
-kernel's design buys (``LADDER``: builds of ``csrc/bvh_traverse.cu`` with
-levers turned off, beside ``binary-v1``), in turns on the coherent and the
-two recorded ray sets of each scene, every step held to the binary kernel
-bit for bit; the last line is one JSON object with its rows.
 
 ``chip_smoke.py`` calls the functions below with scenes it has already
 built, so the loops exist once.
@@ -245,21 +239,14 @@ def same_walk(label: str, ref, got) -> None:
                                f"kernel's on {int(bad.sum())} rays")
 
 
-def time_in_turns(fns: dict, reps: int, on_card: bool) -> dict:
-    """name -> median ms of ``reps`` calls; round by round, every function
-    once.  CUDA events on the card, the host clock on the CPU."""
-    return {name: float(np.median(v))
-            for name, v in times_in_turns(fns, reps, on_card).items()}
-
-
 def spread(times) -> tuple:
     """(10th, 90th percentile) of a list of times."""
     return (float(np.percentile(times, 10)), float(np.percentile(times, 90)))
 
 
 def times_in_turns(fns: dict, reps: int, on_card: bool) -> dict:
-    """name -> the ms of each of ``reps`` calls, as ``time_in_turns``
-    takes them."""
+    """name -> the ms of each of ``reps`` calls; round by round, every
+    function once.  CUDA events on the card, the host clock on the CPU."""
     times = {name: [] for name in fns}
     for name, fn in fns.items():
         for _ in range(3 if on_card else 0):  # warm-up
@@ -320,9 +307,10 @@ def sweep_ray_set(walk: dict, scene: str, ray_set: str, rays, kernels,
                            for c in counts.float().mean(dim=0)]
         row.update(kernel_bound(walk, kernel, counts, any_hit))
         rows.append(row)
-    timed = time_in_turns(
+    timed = times_in_turns(
         {k: (lambda k=k: run(walk, k, o, d, exclude, t_max)) for k in kernels},
         reps, on_card)
+    timed = {k: float(np.median(v)) for k, v in timed.items()}
     for row in rows:
         ms = timed[row["kernel"]]
         row["ms"] = ms
@@ -360,59 +348,6 @@ def sweep_scene(walk: dict, scene: str, ray_sets: dict, frontiers,
     return rows
 
 
-# The binary kernel's levers (csrc/bvh_traverse.cu), cumulative: each step
-# is a build with the levers after it turned off (None is binary-v1); the
-# last row is a side step, the refill without the while-while loop.
-LADDER = ((V1, None),
-          ("shared stack", ("BVH_POSTPONE=0", "BVH_REFILL=0",
-                            "BVH_SHARED_SCAN=0", "BVH_SCANS_WAIT=0")),
-          ("+ while-while", ("BVH_REFILL=0", "BVH_SHARED_SCAN=0",
-                             "BVH_SCANS_WAIT=0")),
-          ("+ persistent refill", ("BVH_SHARED_SCAN=0", "BVH_SCANS_WAIT=0",
-                                   "BVH_REFILL_AT=1")),
-          ("+ shared leaf scans", ("BVH_SCANS_WAIT=0", "BVH_REFILL_AT=1")),
-          ("+ only scans wait", ("BVH_REFILL_AT=1",)),
-          ("+ refill eight at a time", ()),
-          ("refill without while-while", ("BVH_POSTPONE=0",
-                                          "BVH_REFILL_AT=1")))
-
-
-def ladder_scene(walk: dict, scene: str, ray_sets: dict,
-                 reps: int = 20) -> list:
-    """Every step of ``LADDER`` on each ray set (o, d, exclude, t_max) on
-    the card: held to the binary kernel (ids, t and counters equal), then
-    timed in turns.  Prints one line per step and returns the rows."""
-    from . import kernels
-    kernels.build_all(["bvh_traverse_v1"] + [("bvh_traverse", d)
-                                             for _, d in LADDER if d])
-    tables, depth = walk["tables"], walk["depth"]
-    rows = []
-    for name, (o, d, ex, tm) in ray_sets.items():
-        def step(defines, count=False):
-            if defines is None:
-                return tr.traverse_v1(tables, o, d, depth, ex, tm, count)
-            return tr._launch(tables, o, d, depth, ex, tm,
-                              count_steps=count, defines=defines)
-
-        ref = step((), True)
-        for label, defines in LADDER:
-            same_walk(f"{scene} {name} {label}", ref, step(defines, True))
-        times = times_in_turns({label: (lambda d_=defines: step(d_))
-                                for label, defines in LADDER}, reps, True)
-        first = float(np.median(times[V1]))
-        for label, defines in LADDER:
-            ms = float(np.median(times[label]))
-            lo, hi = spread(times[label])
-            rows.append(dict(scene=scene, ray_set=name, step=label,
-                             defines=list(defines or ()), rays=o.shape[0],
-                             ms=ms, p10=lo, p90=hi, vs_v1=ms / first))
-            print(f"[ladder] {scene} {name} {label}: {ms:.3f} ms/launch "
-                  f"(10-90% {lo:.3f}-{hi:.3f}), {ms / first:.3f}x "
-                  f"binary-v1; ids, t and counters equal to the binary "
-                  f"kernel's")
-    return rows
-
-
 def standard_ray_sets(walk: dict, ir, res: int, seed: int, recorded: dict):
     """The four ray sets of the module's note for one scene; ``recorded``
     from ``recorded_launches``."""
@@ -435,12 +370,8 @@ def main(argv=None) -> list:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--ladder", action="store_true",
-                    help="time the binary kernel's levers (card only)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    if args.ladder and dev.type != "cuda":
-        raise SystemExit("--ladder times CUDA builds: it needs the card")
     frontiers = [int(k) for k in args.frontiers.split(",")]
     if dev.type == "cuda":
         print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -467,12 +398,8 @@ def main(argv=None) -> list:
         recorded = recorded_launches(
             cfg.replace(x_res=args.res, y_res=args.res), ir, dev)
         sets = standard_ray_sets(walk, ir, args.res, args.seed, recorded)
-        if args.ladder:
-            del sets["sorted-incoherent"]
-            rows += ladder_scene(walk, scene, sets, args.reps)
-        else:
-            rows += sweep_scene(walk, scene, sets, frontiers, args.reps)
-    print(json.dumps({"ladder" if args.ladder else "sweep": rows}))
+        rows += sweep_scene(walk, scene, sets, frontiers, args.reps)
+    print(json.dumps({"sweep": rows}))
     return rows
 
 

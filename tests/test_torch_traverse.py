@@ -31,8 +31,9 @@ ray is resolved, a ray of the port stops.
 
 ``traverse_v1`` (the kernel's first version, the sweep's "binary-v1") is on
 the CPU the same plain walk, held to the Pallas kernel the same way; the
-persistent grid's shape, the work counter, the block's stack bytes and
-the sweep's lever ladder are checked as host-side pure functions.
+persistent grid's shape and the work counter are checked as host-side
+pure functions, and the plain walk at the ray counts whose hand-out
+the card checks (a short last run of 32, a single ray).
 """
 
 import dataclasses
@@ -47,7 +48,6 @@ from elevenrender_tpu.ops.bvh import brute_force as jax_brute_force
 from elevenrender_tpu.ops.bvh import build_bvh as jax_build_bvh
 from elevenrender_tpu.ops.bvh_pallas import (pack_bvh_for_pallas,
                                              traverse_pallas)
-from elevenrender_tpu_torch import kernels
 from elevenrender_tpu_torch import sweep_traverse as sweep
 from elevenrender_tpu_torch.convert import ir_from_numpy
 from elevenrender_tpu_torch.ops import traverse as tt
@@ -588,16 +588,13 @@ def test_persistent_grid_refuses_a_kernel_that_does_not_fit():
 
 
 def test_work_counter_and_stack_bytes():
-    """The work counter is one int32 on the rays' device; a block's
-    dynamic shared memory is depth - 1 stack entries of 4 bytes for each
-    of its threads (at least one entry)."""
+    """The work counter is one int32 on the rays' device.  A stack entry
+    is (node << 5) | depth in an int32, so the deepest tree the wrapper
+    admits fits it.  (A block's stack bytes are the C library's own,
+    ``bvh_traverse_stack_bytes``, reported by chip_smoke.py on the card.)"""
     w = tt.work_counter("cpu")
     assert w.shape == (1,) and w.dtype == torch.int32
     assert w.device.type == "cpu"
-    assert tt.stack_bytes(11) == 10 * 128 * 4
-    assert tt.stack_bytes(15) == 14 * 512
-    assert tt.stack_bytes(1) == tt.stack_bytes(2) == 512
-    # A stack entry is (node << 5) | depth in an int32.
     nodes = (1 << (tt.MAX_DEPTH + 1)) - 1
     assert (nodes - 1) << 5 | tt.MAX_DEPTH < 2**31
 
@@ -610,25 +607,37 @@ def test_launch_refuses_a_depth_the_stack_cannot_hold(case, depth):
             launch(case["tables"], o, d, depth, None, None)
 
 
-def test_ladder_steps_are_separate_builds():
-    """Each step of the sweep's lever ladder is the binary kernel built
-    with its levers' defines: a library of its own, named apart in the
-    build log; the last full step is the default build."""
-    targets = {}
-    for label, defines in sweep.LADDER:
-        if defines is None:
-            assert label == sweep.V1
-            continue
-        out, cmd = kernels._target("bvh_traverse", defines)
-        assert all(f"-D{d}" in cmd for d in defines)
-        targets[out] = label
-    assert len(targets) == len(sweep.LADDER) - 1
-    assert kernels._target("bvh_traverse", ())[0] in targets
-    assert kernels.label("bvh_traverse", ("BVH_REFILL=0",)) == \
-        "bvh_traverse[BVH_REFILL=0]"
-    assert kernels.label("bvh_traverse") == "bvh_traverse"
-    with pytest.raises(SystemExit):
-        sweep.main(["--device", "cpu", "--ladder"])
+@pytest.mark.parametrize("n", [1, 31, 33])
+def test_plain_walk_at_ragged_ray_counts(case, n):
+    """The walk is a function of each ray: the first n rays alone (a
+    single ray, less than a run of 32, one run and one ray) get the rows
+    of the whole launch, closest-hit and any-hit, counters included; and
+    the Pallas kernel's hits."""
+    o, d = torch.tensor(case["o"]), torch.tensor(case["d"])
+    exclude, t_max = map(torch.tensor, _any_hit_inputs(case))
+    parts = []
+    for ex, tm in ((None, None), (exclude, t_max)):
+        full = tt.traverse(case["tables"], o, d, case["depth"], ex, tm,
+                           count_steps=True)
+        part = tt.traverse(case["tables"], o[:n], d[:n], case["depth"],
+                           None if ex is None else ex[:n],
+                           None if tm is None else tm[:n], count_steps=True)
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[:n])
+        parts.append(part)
+    ji = np.asarray(case["jax"][0])[:n]
+    np.testing.assert_array_equal(parts[0][0].numpy() >= 0, ji >= 0)
+
+
+def test_times_in_turns_gives_every_call():
+    """The sweep's one timing helper returns each call's time, round by
+    round, every function once a round (host clock on the CPU)."""
+    calls = []
+    times = sweep.times_in_turns({"a": lambda: calls.append("a"),
+                                  "b": lambda: calls.append("b")}, 3, False)
+    assert calls == ["a", "b"] * 3
+    assert {k: len(v) for k, v in times.items()} == {"a": 3, "b": 3}
+    assert all(t >= 0 for v in times.values() for t in v)
 
 
 def test_sweep_holds_binary_v1_to_the_binary_walk_exactly(case):
