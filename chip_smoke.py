@@ -75,9 +75,27 @@ result line is printed):
 17. sort_impl="counting": counting_order on the card equals it on the CPU
     for the recorded bounce-1 rays' keys, and Renderer.step at 1024x1024,
     5 bounces renders with it (10 launches per sample), timed in turns
-    beside sort_impl="argsort".
-The last two lines are one JSON object with the kernels' numbers and one
-with the result: {"ok": true, "device": {...}}.
+    beside sort_impl="argsort";
+18. the render server (elevenrender_tpu_torch/server/) on the card,
+    through the client over localhost: get_sycl_info (the card first,
+    probed compatible, the CPU last); a config of 1024x1024, 16 samples,
+    native, with no device named (so cuda:0); the main path's camera and
+    terrain material as wire JSON, the 32x16 sky as float data, the
+    65,522-tri heightfield as OBJ text; then start, get_info and
+    get_pass("beauty") round trips timed while the render thread runs,
+    and the beauty, normal and denoise passes.  Gates: (a) beauty and
+    normal equal a synchronous Renderer.step(16) of the scene an
+    in-memory session builds from the same messages (bit for bit, else
+    within rtol 1e-5 / atol 1e-6 with the difference printed); (b) the
+    denoise pass equals the CPU denoiser on the same raw passes to rtol
+    1e-4 / atol 1e-5 on >= 99.9% of values; (c) 5 closest-hit and 5
+    any-hit kernel launches per sample, on one stream that is not the
+    default stream; (d) the median readback round trip is shorter than
+    one chunk of 8 samples; (e) on a second config of 48 samples, pause
+    holds the count, a bare start resumes to 48, abort resets to 0.
+The last two lines are one JSON object with the kernels' numbers (and
+the server path's) and one with the result: {"ok": true, "device":
+{...}}.
 """
 
 import json
@@ -95,6 +113,295 @@ RAGGED = (65535, 33, 31, 1)
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+# The server phase's scene on the wire: the main path's camera and
+# terrain material, the 32x16 sky, the heightfield as OBJ text.
+WIRE_CAMERA = {"position": {"x": 0.0, "y": 1.5, "z": -4.0},
+               "rotation": {"x": 15.0, "y": 0.0, "z": 0.0},
+               "focal_length": 0.035, "sensor_width": 0.036,
+               "sensor_height": 0.024, "aperture": 2.8,
+               "focus_distance": 1000000.0, "bokeh": False}
+WIRE_MATERIAL = {"name": "terrain",
+                 "albedo": {"r": 0.55, "g": 0.45, "b": 0.35},
+                 "roughness": 0.6, "metalness": 0.1}
+
+
+def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
+    """Phase 18: the render server on ``device`` ("" = the card, as a
+    client that names none gets), driven through the client over
+    localhost; see the module docstring.  Fails on any gate but the
+    launch counts, which the caller reads from the returned dict
+    (``counts``: the traversal wrapper's counts over the 16 samples,
+    ``streams``: the CUDA streams its launches went to)."""
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from elevenrender_tpu_torch.ops import traverse as tr
+    from elevenrender_tpu_torch.render import denoise as dn
+    from elevenrender_tpu_torch.render.integrator import DENOISE
+    from elevenrender_tpu_torch.render.renderer import Renderer, find_device
+    from elevenrender_tpu_torch.scene.demo import (heightfield_mesh,
+                                                   mesh_obj_text, sky_image)
+    from elevenrender_tpu_torch.scene.objloader import load_objs
+    from elevenrender_tpu_torch.server import commands
+    from elevenrender_tpu_torch.server.client import RenderClient
+    from elevenrender_tpu_torch.server.protocol import Message
+    from elevenrender_tpu_torch.server.tcp import RenderServer
+
+    dev = find_device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    out = {}
+    t0 = time.time()
+    obj_text = mesh_obj_text(heightfield_mesh(grid))
+    mtl_text = "newmtl terrain\n"
+    out["obj_write_s"] = time.time() - t0
+    t0 = time.time()
+    meshes, _ = load_objs(obj_text, mtl_text=mtl_text)
+    out["obj_parse_s"] = time.time() - t0
+    n_tris = meshes[0].tri_count
+    out["obj_mib"] = len(obj_text) / 2**20
+    sky = sky_image()
+
+    def config_json(target):
+        """What RenderClient.load_config sends."""
+        return {"x_res": res, "y_res": res, "sample_target": target,
+                "denoise": False, "device": device, "block_size": 8,
+                "compat": False}
+
+    def load_scene(c, target):
+        c.load_config(res, res, target, device=device, compat=False)
+        c.load_camera(WIRE_CAMERA)
+        c.load_brdf_material(WIRE_MATERIAL)
+        c.load_hdri(sky)
+        c.load_object(obj_text, mtl_text)
+
+    def wait_for(c, pred, what, limit=600):
+        deadline = time.time() + limit
+        while True:
+            n = c.get_info()["samples"]
+            if pred(n):
+                return n
+            if time.time() > deadline:
+                fail(f"server: {what}: still at {n} samples after {limit} s")
+            time.sleep(0.005)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    srv = RenderServer("127.0.0.1", port)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    real_launch = tr._launch
+    try:
+        deadline = time.time() + 30
+        while not srv._running:
+            if time.time() > deadline:
+                fail("server: the acceptor did not start")
+            time.sleep(0.01)
+        c = RenderClient("127.0.0.1", port, timeout=600)
+        devices = c.get_device_info()["devices"]
+        out["devices"] = [(d["name"], d["type"], d["is_compatible"])
+                          for d in devices]
+        d0 = devices[0]
+        if devices[-1]["type"] != "cpu" or not all(
+                d["is_compatible"] is True for d in devices):
+            fail(f"server: get_sycl_info {out['devices']}")
+        if cuda and not (d0["type"] == "gpu" and d0["name"].startswith(
+                torch.cuda.get_device_name(0))):
+            fail(f"server: devices[0] is not the card: {d0}")
+
+        t0 = time.time()
+        load_scene(c, spp)
+        out["load_s"] = time.time() - t0
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        streams = set()
+
+        def spy(tables, ray_o, *args, **kw):
+            if cuda:
+                streams.add(torch.cuda.current_stream(ray_o.device)
+                            .cuda_stream)
+            return real_launch(tables, ray_o, *args, **kw)
+
+        tr._launch = spy
+        tr.reset_counts()
+        t0 = time.time()
+        c.start()  # the scene build and upload, then the render thread
+        t_render = time.time()
+        out["start_s"] = t_render - t0
+        info_ms, pass_ms, seen = [], [], []
+        while True:
+            ta = time.time()
+            n = c.get_info()["samples"]
+            info_ms.append((time.time() - ta) * 1e3)
+            if n >= spp:
+                t_done = time.time()
+                break
+            ta = time.time()
+            img = c.get_pass("beauty")
+            pass_ms.append((time.time() - ta) * 1e3)
+            if img.shape != (res * res * 4,) or not np.isfinite(img).all():
+                fail("server: a beauty pass read during the render is not "
+                     "finite or has the wrong shape")
+            seen.append(n)
+            if time.time() - t_render > 600:
+                fail(f"server: {n} of {spp} samples after 600 s")
+            time.sleep(0.05)  # a client polling, not a busy loop
+        tr._launch = real_launch
+        out["counts"] = (tr.launches, tr.any_hit_launches,
+                         dict(tr.variant_launches))
+        out["streams"] = sorted(streams)
+        out["default_stream"] = (torch.cuda.default_stream(dev).cuda_stream
+                                 if cuda else None)
+        out["render_s"] = t_done - t_render
+        out["ms_per_sample"] = out["render_s"] / spp * 1e3
+        out["chunk_ms"] = out["ms_per_sample"] * min(8, spp)
+        out["peak_mib"] = (torch.cuda.max_memory_allocated(dev) / 2**20
+                           if cuda else None)
+        out["info_ms"] = info_ms
+        out["pass_ms"] = pass_ms
+        out["samples_seen"] = sorted(set(seen))
+
+        beauty = c.get_pass("beauty")
+        normal = c.get_pass("normal")
+        ta = time.time()
+        den = c.get_pass("denoise")
+        out["denoise_round_trip_ms"] = (time.time() - ta) * 1e3
+        if not (np.isfinite(beauty).all() and beauty.reshape(-1, 4)[
+                :, :3].mean() > 0 and np.isfinite(den).all()):
+            fail("server: beauty / denoise not finite with a positive mean")
+
+        # (a) The same messages through an in-memory session, rendered
+        # synchronously on the default stream.
+        inbox, sent = [], []
+        ref_sess = commands.CommandSession(send=sent.append,
+                                           recv=lambda: inbox.pop(0))
+        for cmd, payloads in (
+                ("--load_config", [Message.json_msg(config_json(spp))]),
+                ("--load_camera", [Message.json_msg(WIRE_CAMERA)]),
+                ("--load_brdf_material", [Message.json_msg(WIRE_MATERIAL)]),
+                ("--load_hdri", [
+                    Message.json_msg({"name": "hdri", "width": 32,
+                                      "height": 16, "channels": 3,
+                                      "color_space": "LINEAR"}),
+                    Message.float_data(sky.reshape(-1))]),
+                ("--load_object", [
+                    Message("data", "string", obj_text.encode()),
+                    Message("data", "string", mtl_text.encode())])):
+            inbox.extend(payloads)
+            ref_sess.handle_command(cmd)
+        if [m.get_string_data() for m in sent] != ["ok"] * 5 or inbox:
+            fail("server: the in-memory session did not take the messages")
+        t0 = time.time()
+        rcfg, rir = ref_sess.scene.build(config=ref_sess.config, device=dev)
+        sync()
+        out["build_s"] = time.time() - t0
+        if rir["tris"]["verts"].shape[0] != n_tris:
+            fail("server: the in-memory session built another scene")
+        ref = Renderer(rcfg, rir)
+        tr.reset_counts()
+        sync()
+        t0 = time.time()
+        ref.step(spp)
+        sync()
+        out["sync_ms_per_sample"] = (time.time() - t0) / spp * 1e3
+        out["sync_counts"] = (tr.launches, tr.any_hit_launches)
+        # The render thread alone (Renderer.start and join, no server or
+        # client in the process): what the thread and its stream cost.
+        alone = Renderer(rcfg, rir)
+        sync()
+        t0 = time.time()
+        alone.start(spp)
+        alone.join()
+        sync()
+        out["thread_ms_per_sample"] = (time.time() - t0) / spp * 1e3
+        if alone.error is not None or not np.array_equal(
+                alone.get_pass("beauty"), ref.get_pass("beauty")):
+            fail("server: Renderer.start alone did not render what "
+                 "Renderer.step renders")
+        del alone
+        gaps = {}
+        for name, got in (("beauty", beauty), ("normal", normal)):
+            want = ref.get_pass(name)
+            if np.array_equal(got, want):
+                gaps[name] = 0.0
+                continue
+            gaps[name] = float(np.abs(got - want).max())
+            if not np.allclose(got, want, rtol=1e-5, atol=1e-6):
+                fail(f"server: (a) the server's {name} pass differs from "
+                     f"Renderer.step({spp}) by {gaps[name]:.3g}, beyond "
+                     f"rtol 1e-5 / atol 1e-6")
+        out["a_max_abs_diff"] = gaps
+
+        # (b) The denoised pass against the CPU denoiser of the same raw
+        # passes (the albedo guide from the synchronous render, whose
+        # passes are the server's by (a)).
+        albedo = ref.state["passes"][DENOISE].reshape(-1).to("cpu")
+        t0 = time.time()
+        cpu_den = dn.denoise(res, res, torch.tensor(beauty),
+                             torch.tensor(normal), albedo).numpy()
+        out["denoise_cpu_s"] = time.time() - t0
+        close = float(np.isclose(den, cpu_den, rtol=1e-4, atol=1e-5).mean())
+        out["b_close"] = close
+        out["b_max_abs_diff"] = float(np.abs(den - cpu_den).max())
+        if close < 0.999:
+            fail(f"server: (b) the denoised pass matches the CPU denoiser "
+                 f"on {close * 100:.3f}% of values")
+        if cuda:
+            args = [torch.tensor(x, device=dev)
+                    for x in (beauty, normal, albedo.numpy())]
+            dn.denoise(res, res, *args)
+            times = []
+            for _ in range(3):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                dn.denoise(res, res, *args)
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            out["denoise_ms"] = float(np.median(times))
+        del ref, rir
+
+        # (e) pause, resume and abort on a longer target (a new config:
+        # the scene is built again).
+        c.load_config(res, res, target2, device=device, compat=False)
+        c.start()
+        wait_for(c, lambda n: n >= 1, "the second render")
+        c.pause()
+        s1 = c.get_info()["samples"]
+        if not 1 <= s1 < target2:
+            fail(f"server: (e) paused at {s1} of {target2} samples")
+        time.sleep(0.5)
+        if c.get_info()["samples"] != s1:
+            fail("server: (e) the sample count moved while paused")
+        c.start()
+        wait_for(c, lambda n: n >= target2, "the resumed render")
+        time.sleep(0.2)
+        s2 = c.get_info()["samples"]
+        c.abort()
+        s3 = c.get_info()["samples"]
+        out["pause"] = (s1, s2, s3)
+        if s2 != target2 or s3 != 0:
+            fail(f"server: (e) resumed to {s2} of {target2}, abort left {s3}")
+        c.close()
+    finally:
+        tr._launch = real_launch
+        srv.shutdown()
+        th.join(30)
+    if th.is_alive():
+        fail("server: the acceptor thread did not stop")
+    return out
 
 
 def main():
@@ -179,11 +486,14 @@ def main():
     path_launches = {}
     DEFAULT = ("near", 0, "full", False)
 
-    def add_path_launches(label, expected):
-        if tr.variant_launches != expected:
-            fail(f"{label}: launches by variant {tr.variant_launches}, "
+    def add_path_launches(label, expected, counted=None):
+        """``counted``: the wrapper's launches by variant, read by the
+        caller (default: read now)."""
+        counted = tr.variant_launches if counted is None else counted
+        if counted != expected:
+            fail(f"{label}: launches by variant {counted}, "
                  f"expected {expected}")
-        for k, v in tr.variant_launches.items():
+        for k, v in counted.items():
             path_launches[k] = path_launches.get(k, 0) + v
 
     def check(tables, depth, label, o, d, exclude=None, t_max=None,
@@ -1039,6 +1349,62 @@ def main():
     counting_ms = counting_sort_on_the_path(cfg, ir, shapes)
     phase_done("phase 17", t0)
 
+    # ---- 18. the render server on the card ----------------------------------
+    t0 = time.time()
+    srv = server_path()
+    n_srv = 16
+    srv_total, srv_any_hit, srv_variants = srv["counts"]
+    srv_closest = srv_total - srv_any_hit
+    print(f"[server] OBJ text {srv['obj_mib']:.1f} MiB written in "
+          f"{srv['obj_write_s']:.2f} s, parsed in {srv['obj_parse_s']:.2f} "
+          f"s; loads over the wire {srv['load_s']:.2f} s; start (scene "
+          f"build and upload) {srv['start_s']:.2f} s, the same build in "
+          f"memory {srv['build_s']:.2f} s; devices {srv['devices']}")
+    print(f"[server] 1024x1024 native 5 bounces, {n_srv} samples in the "
+          f"render thread: {srv['ms_per_sample']:.1f} ms/sample (wall from "
+          f"the start reply to the get_info that shows {n_srv}, polled "
+          f"every ~50 ms), synchronous Renderer.step({n_srv}) "
+          f"{srv['sync_ms_per_sample']:.1f}, the render thread alone "
+          f"(Renderer.start, no server) {srv['thread_ms_per_sample']:.1f} "
+          f"ms/sample; {srv_closest} "
+          f"closest-hit and {srv_any_hit} any-hit launches on stream(s) "
+          f"{srv['streams']} (default stream {srv['default_stream']}); "
+          f"peak memory {srv['peak_mib']:.0f} MiB; snapshots seen "
+          f"{srv['samples_seen']}")
+    info_med = float(np.median(srv["info_ms"]))
+    pass_med = float(np.median(srv["pass_ms"])) if srv["pass_ms"] else None
+    print(f"[server] readback during the render: get_info "
+          f"{len(srv['info_ms'])} round trips, median {info_med:.1f} ms "
+          f"(max {max(srv['info_ms']):.1f}); get_pass beauty "
+          f"{len(srv['pass_ms'])}, median {pass_med} ms (max "
+          f"{max(srv['pass_ms'] or [0]):.1f}); one chunk of 8 samples "
+          f"{srv['chunk_ms']:.0f} ms")
+    print(f"[server] (a) beauty / normal against Renderer.step({n_srv}): "
+          f"max |diff| {srv['a_max_abs_diff']} (0 = bit-equal); (b) denoise "
+          f"pass against the CPU denoiser: {srv['b_close'] * 100:.4f}% of "
+          f"values within rtol 1e-4 / atol 1e-5, max |diff| "
+          f"{srv['b_max_abs_diff']:.3g}; denoise at 1024x1024 on the card "
+          f"{srv['denoise_ms']:.1f} ms (median of 3, CUDA events), on the "
+          f"CPU {srv['denoise_cpu_s']:.2f} s, the denoise round trip "
+          f"{srv['denoise_round_trip_ms']:.0f} ms; (e) paused at, resumed "
+          f"to, after abort: {srv['pause']}")
+    if srv_closest != 5 * n_srv or srv_any_hit != 5 * n_srv:
+        fail(f"server: (c) {srv_closest} closest-hit and {srv_any_hit} "
+             f"any-hit launches over {n_srv} samples, expected 5 and 5 per "
+             f"sample")
+    add_path_launches("server path", {DEFAULT: 10 * n_srv}, srv_variants)
+    if srv["sync_counts"] != (10 * n_srv, 5 * n_srv):
+        fail(f"server: the synchronous render made {srv['sync_counts']} "
+             f"launches")
+    if len(srv["streams"]) != 1 or srv["streams"][0] == srv["default_stream"]:
+        fail(f"server: the render thread's launches went to streams "
+             f"{srv['streams']}, not one stream of its own")
+    if not srv["pass_ms"] or not (info_med < srv["chunk_ms"]
+                                  and pass_med < srv["chunk_ms"]):
+        fail("server: (d) readback during the render is not shorter than "
+             "one chunk")
+    phase_done("phase 18", t0)
+
     src = "elevenrender_tpu_torch/csrc/bvh_traverse.cu"
     row12 = "elevenrender_tpu/ops/bvh_pallas.py:102"
     row3 = "elevenrender_tpu/ops/bvh_pallas.py:102 (stream=True)"
@@ -1069,20 +1435,22 @@ def main():
 
     kern = [
         entry("bvh_traverse closest-hit", row12,
-              main_closest + grad_launches[("near", 0)][0], err12["closest"],
-              timing["closest_b1"], against_v1(
+              main_closest + grad_launches[("near", 0)][0] + srv_closest,
+              err12["closest"], timing["closest_b1"], against_v1(
                   timing["closest_b1"], False, depth,
                   {"ms_bounce0": timing["closest_b0"]["ms"],
                    "ms_v1_bounce0": timing["closest_b0"]["ms_v1"],
                    "launches_forward_path": main_closest,
-                   "launches_gradient_path": grad_launches[("near", 0)][0]})),
+                   "launches_gradient_path": grad_launches[("near", 0)][0],
+                   "launches_server_path": srv_closest})),
         entry("bvh_traverse any-hit", row12,
-              main_any_hit + grad_launches[("near", 0)][1], err12["any_hit"],
-              timing["any_hit_b1"], against_v1(
+              main_any_hit + grad_launches[("near", 0)][1] + srv_any_hit,
+              err12["any_hit"], timing["any_hit_b1"], against_v1(
                   timing["any_hit_b1"], True, depth,
                   {"launches_forward_path": main_any_hit,
                    "launches_gradient_path":
-                       grad_launches[("near", 0)][1]})),
+                       grad_launches[("near", 0)][1],
+                   "launches_server_path": srv_any_hit})),
         entry("bvh_traverse closest-hit, stream residency (config 5)", row3,
               c5_closest, err3["closest"], timing5["closest_b1"], against_v1(
                   timing5["closest_b1"], False, depth5,
@@ -1195,8 +1563,16 @@ def main():
           f"count_steps) over the driven paths: "
           f"{ {str(k): v for k, v in sorted(path_launches.items())} }")
     print(f"[done] {time.time() - t_start:.1f} s")
+    server_numbers = {k: srv[k] for k in (
+        "ms_per_sample", "sync_ms_per_sample", "thread_ms_per_sample",
+        "chunk_ms", "start_s",
+        "build_s", "obj_parse_s", "load_s", "denoise_ms", "denoise_cpu_s",
+        "denoise_round_trip_ms", "peak_mib", "a_max_abs_diff", "b_close")}
+    server_numbers.update(readback_info_ms_median=info_med,
+                          readback_pass_ms_median=pass_med)
     print(json.dumps({"kernels": kern, "instruments": instruments,
-                      "counting_ms_per_sample": counting_ms}))
+                      "counting_ms_per_sample": counting_ms,
+                      "server_path": server_numbers}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

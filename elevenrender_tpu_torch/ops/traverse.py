@@ -57,6 +57,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .bvh import preorder_indices
 from .intersect import moller_trumbore
@@ -333,22 +334,24 @@ def blocks_per_sm(device, depth: int, any_hit: bool = False) -> int:
         return _fit(_library(), dev, depth, (int(any_hit), 0, 0, 0, 0))[1]
 
 
-# (data_ptr, version, tri rows) of leaf tables already checked.
-_checked_leaves: set = set()
+# Leaf table -> (its _version, tri rows) when it passed the check.  Keyed
+# on the tensor object, held weakly: a new table is checked even where
+# the allocator hands it a freed table's address, and a dropped table
+# leaves no entry behind.
+_checked_leaves = WeakIdKeyDictionary()
 
 
 def _check_leaf_ranges(leaves, t_rows):
     """Every leaf range of ``leaves`` lies in [0, t_rows).  Checked once
     per table (one device sync), then remembered until the table
     changes."""
-    key = (leaves.data_ptr(), leaves._version, t_rows)
-    if key in _checked_leaves:
+    if _checked_leaves.get(leaves) == (leaves._version, t_rows):
         return
     lo = leaves[:, 0::2]
     hi = leaves[:, 1::2]
     if bool(((lo < 0) | (hi < lo) | (hi > t_rows)).any()):
         raise ValueError(f"leaf table has a tri range outside [0, {t_rows})")
-    _checked_leaves.add(key)
+    _checked_leaves[leaves] = (leaves._version, t_rows)
 
 
 def _check_launch(tables, ray_o, ray_d, depth, exclude, t_max):

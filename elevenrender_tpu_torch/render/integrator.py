@@ -104,15 +104,15 @@ def resolve_trace_mode(config, ir) -> str:
 
 
 def recommended_samples_per_dispatch(config, ir, default: int = 8) -> int:
-    """The JAX package's samples per jitted dispatch, for callers that
-    size their own loops by it.
+    """Samples per chunk of a background render (``Renderer.start``
+    takes the smaller of this and ``config.block_size``).
 
     The JAX package bounds this by scene scale, because one jitted
     dispatch there must stay inside its runtime's wall-time envelope.
     PyTorch runs eagerly, one kernel at a time, so no scene size forces a
-    smaller chunk and nothing in the port reads the value (the gradient
-    accumulator ignores its ``chunk``): the function keeps the two
-    overrides and otherwise returns ``default``.
+    smaller chunk (and the gradient accumulator ignores its ``chunk``):
+    the function keeps the two overrides and otherwise returns
+    ``default``.
     ``config.samples_per_dispatch > 0`` wins over the default, and the
     ``ELEVENRT_SAMPLES_PER_DISPATCH`` environment variable wins over
     both."""

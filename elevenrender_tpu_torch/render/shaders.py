@@ -51,6 +51,13 @@ NAMED_SHADERS = {
     "uv_gradient": _uv_gradient,
 }
 
+
+def register_named_shader(name: str, fn) -> None:
+    """Add ``fn`` to the library under ``name`` (the server's
+    ``load_osl_material`` selects by name; no code crosses the wire)."""
+    NAMED_SHADERS[name] = fn
+
+
 _REGISTRY: list = [_placeholder] * MAX_SHADERS
 _VERSION = 0
 

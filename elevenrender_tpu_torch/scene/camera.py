@@ -21,3 +21,20 @@ class Camera:
     bokeh: bool = False
     position: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(3, np.float32))
+
+    @staticmethod
+    def from_json(obj: dict) -> "Camera":
+        """The wire JSON: every field required, position and rotation as
+        {"x", "y", "z"} (the reference's parse_camerajson)."""
+        pos = obj["position"]
+        rot = obj["rotation"]
+        return Camera(
+            focal_length=float(obj["focal_length"]),
+            sensor_width=float(obj["sensor_width"]),
+            sensor_height=float(obj["sensor_height"]),
+            aperture=float(obj["aperture"]),
+            focus_distance=float(obj["focus_distance"]),
+            bokeh=bool(obj["bokeh"]),
+            position=np.array([pos["x"], pos["y"], pos["z"]], np.float32),
+            rotation=np.array([rot["x"], rot["y"], rot["z"]], np.float32),
+        )

@@ -10,6 +10,9 @@ nearest 32x32 flat normal map, the sky and one point light.
 
 Both are the JAX package's test scenes of those names
 (``tests/scenes.py``): the same geometry, textures, light and camera.
+
+``mesh_obj_text`` writes a mesh as the OBJ text a client streams to the
+server (``load_object``); ``sky_image`` is the scenes' HDRI.
 """
 
 from __future__ import annotations
@@ -57,12 +60,40 @@ def heightfield_mesh(grid: int = 128, seed: int = 0) -> MeshData:
                     mat_names=["terrain"] * T)
 
 
-def _sky_camera_and_build(scene, res, spp, compat, bvh_depth, device):
+def mesh_obj_text(mesh: MeshData) -> str:
+    """``mesh`` as OBJ text: one ``o`` shape, three ``v`` and ``vt`` lines
+    per tri, no normals, and a ``usemtl`` wherever the material name
+    changes.  z is negated, as the loader negates it back, and every
+    float is written with %.9g, which gives a float32 back exactly; so
+    ``load_objs`` returns the mesh's verts, uvs, tangents and names, and
+    its geometric normals (those of ``heightfield_mesh``)."""
+    verts = mesh.verts.reshape(-1, 3) * np.array([1.0, 1.0, -1.0],
+                                                 np.float32)
+    lines = [f"o {mesh.name}"]
+    lines += [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in verts.tolist()]
+    lines += [f"vt {u:.9g} {v:.9g}"
+              for u, v in mesh.uvs.reshape(-1, 2).tolist()]
+    current = None
+    for t, name in enumerate(mesh.mat_names):
+        if name != current:
+            lines.append(f"usemtl {name}")
+            current = name
+        a, b, c = 3 * t + 1, 3 * t + 2, 3 * t + 3
+        lines.append(f"f {a}/{a} {b}/{b} {c}/{c}")
+    return "\n".join(lines) + "\n"
+
+
+def sky_image() -> np.ndarray:
+    """The scenes' 32x16 HDRI: a blue sky, a grey ground and a sun."""
     sky = np.zeros((16, 32, 3), np.float32)
     sky[:8] = [0.6, 0.7, 0.9]
     sky[8:] = [0.2, 0.2, 0.2]
     sky[3, 8] = [50.0, 45.0, 40.0]  # sun
-    scene.add_hdri(HDRI(Texture("sky", sky)))
+    return sky
+
+
+def _sky_camera_and_build(scene, res, spp, compat, bvh_depth, device):
+    scene.add_hdri(HDRI(Texture("sky", sky_image())))
     scene.camera.position = np.array([0.0, 1.5, -4.0], np.float32)
     scene.camera.rotation = np.array([15.0, 0.0, 0.0], np.float32)
     scene.x_res = res

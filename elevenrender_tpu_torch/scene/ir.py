@@ -48,8 +48,8 @@ class RenderConfig:
     x_res: int = 1280
     y_res: int = 720
     sample_target: int = 100
-    denoise: bool = False          # not ported yet: Renderer raises
-    device: str = ""               # JAX device name; the port takes device=
+    denoise: bool = False          # get_pass through the colour-only denoiser
+    device: str = ""               # Renderer's device: "" = cuda:0, "cpu", ...
     block_size: int = 8
     passes_enabled: tuple = (True, True, True, True, True)
 

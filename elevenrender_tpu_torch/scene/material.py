@@ -71,3 +71,32 @@ class Material:
         m = Material()
         m.compute_aniso_alphas()
         return m
+
+    @staticmethod
+    def from_json(obj: dict) -> "Material":
+        """The wire JSON (the reference's parse_materialjson): colours as
+        {"r", "g", "b"}, the scalars by name, where the wire name for
+        metallic is ``metalness``, and the map names."""
+        m = Material()
+        if "name" in obj:
+            m.name = str(obj["name"])
+        if "albedo" in obj:
+            c = obj["albedo"]
+            m.albedo = np.array([c["r"], c["g"], c["b"]], np.float32)
+        if "emission" in obj:
+            c = obj["emission"]
+            m.emission = np.array([c["r"], c["g"], c["b"]], np.float32)
+        for wire, attr in (("roughness", "roughness"),
+                           ("metalness", "metallic"),
+                           ("specular", "specular"), ("opacity", "opacity"),
+                           ("transmission", "transmission")):
+            if wire in obj:
+                setattr(m, attr, float(obj[wire]))
+        for slot in MAP_SLOTS:
+            key = f"{slot}_map"
+            if key in obj:
+                setattr(m, key, str(obj[key]))
+        if "albedo_shader_id" in obj:
+            m.albedo_shader_id = int(obj["albedo_shader_id"])
+        m.compute_aniso_alphas()
+        return m

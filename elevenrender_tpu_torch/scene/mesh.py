@@ -1,7 +1,7 @@
 """One shape as flat triangle arrays (SoA), ready for the scene IR.
 
 The port's copy of ``MeshData`` from ``elevenrender_tpu/scene/objloader.py``;
-OBJ parsing comes with a later slice.
+the OBJ parser that makes one is ``scene/objloader.py``.
 """
 
 from __future__ import annotations
@@ -24,3 +24,11 @@ class MeshData:
     @property
     def tri_count(self) -> int:
         return self.verts.shape[0]
+
+    def translate(self, offset) -> None:
+        self.verts = self.verts + np.asarray(offset, np.float32)
+
+    def recompute_normals(self) -> None:
+        """Face-area-weighted vertex normals over shared positions."""
+        from .objloader import recompute_normals_face_weight
+        self.normals = recompute_normals_face_weight(self.verts)

@@ -2,7 +2,8 @@
 
 The port's copy of ``elevenrender_tpu/scene/scene.py``: camera,
 materials, textures (deduplicated by name), meshes, point lights, the
-HDRI (default 0.5 grey), material-to-texture pairing by map name, and
+HDRI (default 0.5 grey), material-to-texture pairing by map name
+(tri-to-material pairing by name happens in ``build_ir``), and
 ``build`` into the device IR.  ``dirty`` is set by every mutation, so a
 caller can tell whether the built IR is stale.
 """
@@ -54,6 +55,10 @@ class Scene:
         self.meshes.append(mesh)
         self.dirty = True
 
+    def add_meshes(self, meshes) -> None:
+        for m in meshes:
+            self.add_mesh(m)
+
     def add_point_light(self, light: PointLight) -> None:
         self.point_lights.append(light)
         self.dirty = True
@@ -74,6 +79,11 @@ class Scene:
                 name = getattr(mat, f"{slot}_map")
                 if name and name in self.texture_ids:
                     setattr(mat, f"{slot}_texture_id", self.texture_ids[name])
+
+    def pair_materials(self) -> None:
+        """Tris find their material by name when the IR is built
+        (``build_ir``); kept so a session calls what the reference's
+        Scene::pair_materials names."""
 
     @property
     def tri_count(self) -> int:

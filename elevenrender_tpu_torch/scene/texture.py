@@ -3,9 +3,9 @@
 The port's copy of ``elevenrender_tpu/scene/texture.py``: construction
 from raw float data (with sRGB to linear) or a constant colour, the
 host-side image ops (mirror, channel clamp, circular pixel shift, gamma)
-and ``value_at``.  Device sampling over the packed atlas is
-``ops/texture.py``.  ``from_file`` needs the image decoders, which come
-with the OBJ-loader slice; it raises until then.
+and ``value_at``; ``from_file`` reads PNG, HDR, BMP, TGA and JPEG
+through ``utils/image.py``.  Device sampling over the packed atlas is
+``ops/texture.py``.
 """
 
 from __future__ import annotations
@@ -55,9 +55,14 @@ class Texture:
     @staticmethod
     def from_file(path: str, srgb: bool = True,
                   filter: int = FILTER_NONE) -> "Texture":
-        raise NotImplementedError(
-            "Texture.from_file needs the image decoders, which are not "
-            "ported yet; build the texture with Texture.from_raw")
+        """An image file, flipped vertically and, when sRGB, raised to
+        the power 2.2 (stb's load flip and ldr-to-hdr gamma, as the
+        reference loads textures)."""
+        from ..utils.image import read_image
+        arr = read_image(path)[::-1]
+        if srgb:
+            arr = arr ** 2.2
+        return Texture(path, np.ascontiguousarray(arr, np.float32), filter)
 
     @property
     def width(self) -> int:

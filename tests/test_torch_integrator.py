@@ -189,10 +189,14 @@ def test_renderer_passes_and_unported_features():
         assert p.shape == (8 * 8 * 4,) and np.isfinite(p).all()
     np.testing.assert_array_equal(r.get_pass("nonsense"),
                                   r.get_pass("beauty"))
-    with pytest.raises(NotImplementedError):
-        r.get_pass("denoise")
-    with pytest.raises(NotImplementedError):
-        Renderer(cfg.replace(denoise=True), ir, device="cpu")
+    # The denoiser is ported (tests/test_torch_renderer.py holds it to
+    # the JAX package's): the "denoise" pass and config.denoise work.
+    den = r.get_pass("denoise")
+    assert den.shape == (8 * 8 * 4,) and np.isfinite(den).all()
+    assert (den[3::4] == 1.0).all()
+    rd = Renderer(cfg.replace(denoise=True), ir, device="cpu")
+    rd.step(1)
+    assert (rd.get_pass("normal")[3::4] == 1.0).all()
     # Textures, point lights and shaders render.  No material binds a
     # texture or a shader here, so enabling those paths changes no value
     # beyond an ulp (torch's CPU pow may round a strided view and a

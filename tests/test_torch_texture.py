@@ -177,8 +177,11 @@ def test_host_texture_ops_equal_jax():
                                   JaxTexture("g", grey).value_at(-5, 7))
     np.testing.assert_array_equal(Texture.from_color([0.1, 0.2, 0.3]).data,
                                   JaxTexture.from_color([0.1, 0.2, 0.3]).data)
-    with pytest.raises(NotImplementedError):
-        Texture.from_file("albedo.png")
+    # from_file is ported (tests/test_torch_image_io.py reads real
+    # files): a missing file raises as in the JAX package.
+    for cls in (Texture, JaxTexture):
+        with pytest.raises(FileNotFoundError):
+            cls.from_file("no/such/albedo.png")
 
 
 def test_scene_texture_ids_equal_jax():

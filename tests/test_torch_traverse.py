@@ -545,6 +545,29 @@ def test_wrapper_refuses_tables_it_cannot_serve(case, monkeypatch):
         tt._launch(case["tables"], o, d, case["depth"], None, None)
 
 
+def test_leaf_range_check_sees_a_new_table_at_a_freed_address():
+    """A checked table is dropped and a bad one is made over the same
+    memory: the new tensor has the old one's address and ``_version`` 0,
+    and must still be checked.  Then an in-place edit of a checked table
+    is checked again."""
+    arr = np.array([[0, 4, 4, 8]] * 4, np.int32)
+    good = torch.from_numpy(arr)
+    ptr = good.data_ptr()
+    tt._check_leaf_ranges(good, 8)
+    del good
+    arr[1] = [0, 4, 4, 9]
+    bad = torch.from_numpy(arr)
+    assert bad.data_ptr() == ptr and bad._version == 0
+    with pytest.raises(ValueError, match="leaf table"):
+        tt._check_leaf_ranges(bad, 8)
+    arr[1] = [0, 4, 4, 8]
+    fixed = torch.from_numpy(arr)
+    tt._check_leaf_ranges(fixed, 8)
+    fixed[2, 3] = 9
+    with pytest.raises(ValueError, match="leaf table"):
+        tt._check_leaf_ranges(fixed, 8)
+
+
 def test_v1_walk_on_the_cpu_is_the_plain_walk(case):
     """The first version's wrapper runs ``traverse_plain`` on CPU tensors
     (and launches nothing): the same ids, t and counters as ``traverse``,
