@@ -7,7 +7,9 @@ Phases (each prints its lines; any failure ends the run non-zero and no
 result line is printed):
  1. environment: torch and CUDA versions, the card's name and power limit;
  2. build: every CUDA kernel of the port, from the sources in this tree,
-    with each entry function's registers, stack frame and spills (ptxas);
+    with each entry function's registers, stack frame and spills (ptxas),
+    and, at the same time, the host runtime (csrc/elevenrt.cpp: the C++
+    SAH build and OBJ tokenizer) with the host compiler;
  3. the BVH traversal kernel (csrc/bvh_traverse.cu: persistent warps with
     ray refill, while-while leaf rounds, warp-shared leaf scans, the stack
     in shared memory) against its plain PyTorch version on the 65,522-tri
@@ -26,7 +28,9 @@ result line is printed):
     render path launches) and each one's 10-90% spread, the plain
     version's time, and the bound from the kernel's own counters;
  7. config 5: the 999,698-tri textured heightfield with a point light
-    (build time, BVH depth and largest leaf), and the kernel against its
+    (set-up time with the C++ SAH build, beside the numpy build's 47.9 s
+    on the card's host in the run that first built it; BVH depth and
+    largest leaf), and the kernel against its
     plain version there, as in phase 3, ragged ray counts included; its
     tri table (45.8 MiB) no
     longer fits beside the rest in the card's 50 MB L2;
@@ -81,7 +85,9 @@ result line is printed):
     probed compatible, the CPU last); a config of 1024x1024, 16 samples,
     native, with no device named (so cuda:0); the main path's camera and
     terrain material as wire JSON, the 32x16 sky as float data, the
-    65,522-tri heightfield as OBJ text; then start, get_info and
+    65,522-tri heightfield as OBJ text (14.9 MiB: the C++ tokenizer's
+    meshes, timed beside the Python tokenizer's, equal to them); then
+    start, get_info and
     get_pass("beauty") round trips timed while the render thread runs,
     and the beauty, normal and denoise passes.  Gates: (a) beauty and
     normal equal a synchronous Renderer.step(16) of the scene an
@@ -92,10 +98,21 @@ result line is printed):
     any-hit kernel launches per sample, on one stream that is not the
     default stream; (d) the median readback round trip is shorter than
     one chunk of 8 samples; (e) on a second config of 48 samples, pause
-    holds the count, a bare start resumes to 48, abort resets to 0.
+    holds the count, a bare start resumes to 48, abort resets to 0;
+19. (a) the host runtime: config 5's 999,698 tris through the C++ SAH
+    build and the numpy build, both timed: perm, node ranges and max
+    leaf equal, boxes bit-equal; (b) pixel sharding over
+    torch.distributed (elevenrender_tpu_torch/parallel/), spawned ranks:
+    the main path (65,522 tris, 1024x1024, 5 bounces, 4 samples) on 1
+    rank over NCCL and on 2 ranks that share the card over gloo, through
+    sharded_render_step and gather_image, equal to Renderer.step(4) bit
+    for bit, with 5 closest-hit and 5 any-hit launches per sample on
+    every rank and each rank's ms/sample and peak memory (the 2 ranks
+    share one card: no scaling is measured); the sharded loss and
+    gradients at 64x64 on 2 ranks equal one process's within rtol 1e-5.
 The last two lines are one JSON object with the kernels' numbers (and
-the server path's) and one with the result: {"ok": true, "device":
-{...}}.
+the server path's, the host runtime's and the sharded path's) and one
+with the result: {"ok": true, "device": {...}}.
 """
 
 import json
@@ -105,6 +122,11 @@ import sys
 import time
 
 CONFIG5_TRIS = 999698
+# Config 5's set-up time with the numpy SAH build, in the run that first
+# built it on the card's host (chip_smoke.py phase 7, NVIDIA H100 80GB
+# HBM3, 700.00 W): printed beside this run's set-up time for scale only,
+# never carried as a result of this run.
+CONFIG5_NUMPY_SETUP_S = 47.9
 # Ray counts of phase 3's ragged checks: a tail of 31 after 2047 full runs
 # of 32, one run and a ray, less than a run, a single ray.
 RAGGED = (65535, 33, 31, 1)
@@ -140,12 +162,14 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
     import numpy as np
     import torch
 
+    from elevenrender_tpu_torch.ops import native
     from elevenrender_tpu_torch.ops import traverse as tr
     from elevenrender_tpu_torch.render import denoise as dn
     from elevenrender_tpu_torch.render.integrator import DENOISE
     from elevenrender_tpu_torch.render.renderer import Renderer, find_device
     from elevenrender_tpu_torch.scene.demo import (heightfield_mesh,
                                                    mesh_obj_text, sky_image)
+    from elevenrender_tpu_torch.scene import objloader
     from elevenrender_tpu_torch.scene.objloader import load_objs
     from elevenrender_tpu_torch.server import commands
     from elevenrender_tpu_torch.server.client import RenderClient
@@ -164,11 +188,45 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
     obj_text = mesh_obj_text(heightfield_mesh(grid))
     mtl_text = "newmtl terrain\n"
     out["obj_write_s"] = time.time() - t0
-    t0 = time.time()
-    meshes, _ = load_objs(obj_text, mtl_text=mtl_text)
-    out["obj_parse_s"] = time.time() - t0
+    # The route load_objs takes is observed: the calls it makes into the
+    # C++ tokenizer are counted (one past objloader.NATIVE_MIN_CHARS,
+    # which the full-size text is).
+    real_parse = native.parse_obj_native
+    parse_calls = []
+
+    def counted_parse(text):
+        parse_calls.append(len(text))
+        return real_parse(text)
+
+    native.parse_obj_native = counted_parse
+    try:
+        t0 = time.time()
+        meshes, _ = load_objs(obj_text, mtl_text=mtl_text)
+        out["obj_parse_s"] = time.time() - t0
+    finally:
+        native.parse_obj_native = real_parse
+    out["obj_parse_route"] = ("c++" if parse_calls == [len(obj_text)]
+                              else "python" if not parse_calls
+                              else f"{len(parse_calls)} C++ calls")
     n_tris = meshes[0].tri_count
     out["obj_mib"] = len(obj_text) / 2**20
+    # Each tokenizer on its own, timed, must give the same meshes (one
+    # shape, no normals: face normals both ways).
+    parsed = {}
+    for route, parse in (("cpp", objloader._load_objs_native),
+                         ("python", objloader._load_objs_python)):
+        t0 = time.time()
+        parsed[route] = parse(obj_text, False)
+        out[f"obj_parse_{route}_s"] = time.time() - t0
+    a, b = parsed["cpp"], parsed["python"]
+    if [m.name for m in a] != [m.name for m in b] or not all(
+            np.array_equal(getattr(x, k), getattr(y, k))
+            for x, y in zip(a, b)
+            for k in ("verts", "normals", "uvs", "tangents",
+                      "tangent_signs")) or [m.mat_names for m in a] != \
+            [m.mat_names for m in b]:
+        fail("server: the C++ tokenizer's meshes differ from the Python "
+             "tokenizer's")
     sky = sky_image()
 
     def config_json(target):
@@ -404,6 +462,102 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
     return out
 
 
+def host_runtime_path(grid=708):
+    """Phase 19 (a): the heightfield's tris (grid 708: config 5's
+    999,698) through the C++ SAH build and the numpy build, both timed;
+    fails unless perm, node ranges and max leaf are equal and the boxes
+    bit-equal."""
+    import numpy as np
+
+    from elevenrender_tpu_torch.ops.bvh import build_bvh
+    from elevenrender_tpu_torch.scene.demo import heightfield_tris
+
+    verts = heightfield_tris(grid)
+    out = {"tris": int(verts.shape[0])}
+    t0 = time.time()
+    cpp = build_bvh(verts, use_native=True)
+    out["bvh_cpp_s"] = time.time() - t0
+    t0 = time.time()
+    plain = build_bvh(verts, use_native=False)
+    out["bvh_numpy_s"] = time.time() - t0
+    for k in ("perm", "node_from", "node_to"):
+        if not np.array_equal(cpp[k], plain[k]):
+            fail(f"host runtime: the C++ build's {k} differs from numpy's")
+    for k in ("node_bmin", "node_bmax"):
+        if not np.array_equal(cpp[k].view(np.uint32),
+                              plain[k].view(np.uint32)):
+            fail(f"host runtime: the C++ build's {k} is not bit-equal")
+    if (cpp["depth"], cpp["max_leaf"]) != (plain["depth"], plain["max_leaf"]):
+        fail("host runtime: depth or max leaf differ")
+    out["depth"], out["max_leaf"] = cpp["depth"], cpp["max_leaf"]
+    return out
+
+
+def sharded_path(grid=182, res=1024, spp=4, grad_res=64, grad_spp=2,
+                 device="cuda", renderer_passes=None):
+    """Phase 19 (b): the main path through the sharded step on spawned
+    ranks, 1 over NCCL and 2 sharing the card over gloo (on the CPU: 1
+    and 2 over gloo), each gathered image equal to ``renderer_passes``
+    (Renderer.step(spp) of the same scene, [P, npix, 4]) bit for bit;
+    then the sharded loss and gradients at ``grad_res`` on 2 ranks
+    against one process (rtol 1e-5).  Returns each run's per-rank
+    numbers; the launch-count gates live in ``main``."""
+    import numpy as np
+
+    from elevenrender_tpu_torch.parallel import dryrun
+    from elevenrender_tpu_torch.parallel import mesh as pm
+
+    render = {"kind": "render", "scene": "heightfield", "grid": grid,
+              "res": res, "bounces": 5, "samples": spp, "warmup": True}
+    grad = {"kind": "grad", "scene": "heightfield", "grid": grid,
+            "res": grad_res, "bounces": 5, "samples": grad_spp}
+    cuda = device != "cpu"
+    out = {}
+    for label, world, backend, tasks in (
+            ("n1_nccl" if cuda else "n1_gloo", 1, None, [render]),
+            ("n2_gloo", 2, "gloo", [render, grad])):
+        t0 = time.time()
+        ranks = dryrun.run_ranks(tasks, world, device, backend,
+                                 timeout=600)
+        got = ranks[0][0]["passes"]
+        if any(r[0]["passes"] is not None for r in ranks[1:]):
+            fail(f"sharding {label}: an image was gathered off rank 0")
+        if not np.isfinite(got).all() or not got[0, :, :3].mean() > 0:
+            fail(f"sharding {label}: the gathered image is not finite and "
+                 f"lit")
+        diff = (0.0 if np.array_equal(got, renderer_passes)
+                else float(np.abs(got - renderer_passes).max()))
+        if diff:
+            fail(f"sharding {label}: the gathered passes differ from "
+                 f"Renderer.step({spp}) by {diff:.3g}")
+        out[label] = {
+            "wall_s": time.time() - t0,
+            "ranks": [{k: r[0][k] for k in ("ms_per_sample", "peak_mib",
+                                           "launches")} for r in ranks]}
+        if len(tasks) > 1:
+            alone = dryrun.run_tasks(pm.make_mesh(device=device), [grad])[0]
+            loss = ranks[0][1]["loss"]
+            rel = abs(loss - alone["loss"]) / abs(alone["loss"])
+            worst = 0.0
+            for k, want in alone["grads"]["materials"].items():
+                for r in ranks:
+                    g = r[1]["grads"]["materials"][k]
+                    scale = max(float(np.abs(want).max()), 1e-30)
+                    worst = max(worst, float(np.abs(g - want).max()) / scale)
+                    if not np.allclose(g, want, rtol=1e-5,
+                                       atol=1e-5 * scale):
+                        fail(f"sharding {label}: gradient {k} differs from "
+                             f"one process's beyond rtol 1e-5")
+            if rel > 1e-5 or not np.isfinite(loss):
+                fail(f"sharding {label}: loss {loss} against one process's "
+                     f"{alone['loss']}")
+            out[label]["grad"] = {"res": grad_res, "samples": grad_spp,
+                                  "loss": loss, "loss_alone": alone["loss"],
+                                  "loss_rel_diff": rel,
+                                  "grad_max_diff_over_leaf_max": worst}
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -444,9 +598,12 @@ def main():
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.time()
-    kernels.build_all()
+    kernels.build_all([*kernels.LIBRARIES, *kernels.HOST_LIBRARIES])
     print(f"[build] {time.time() - t0:.1f} s for {len(kernels.LIBRARIES)} "
-          f"librar{'y' if len(kernels.LIBRARIES) == 1 else 'ies'}")
+          f"CUDA libraries and the host runtime, all compilers at once; the "
+          f"host runtime (c++ {' '.join(kernels.HOST_FLAGS)}) "
+          f"{kernels.build_info['elevenrt']['seconds']:.1f} s")
+    host_build_s = kernels.build_info["elevenrt"]["seconds"]
     # library -> {template arguments as mangled: (registers, stack bytes,
     # spill store bytes, spill load bytes)}, from ptxas -v.
     ptxas = {}
@@ -1257,8 +1414,11 @@ def main():
         fail(f"config 5 has {n5} tris, expected {CONFIG5_TRIS}")
     if config5.n_lights != 1 or config5.tex_uniform_filter != -1:
         fail("config 5 lost its point light or its mixed-filter atlas")
+    config5_setup_s = time.time() - t0
     print(f"[config5] {n5} tris, bvh depth {config5.bvh_depth}, max leaf "
-          f"{config5.bvh_max_leaf}, built in {time.time() - t0:.1f} s")
+          f"{config5.bvh_max_leaf}, built in {config5_setup_s:.1f} s with "
+          f"the C++ SAH build (PR 2's run, with the numpy build: "
+          f"{CONFIG5_NUMPY_SETUP_S} s on the card's host)")
     depth5 = config5.bvh_depth
     rays5 = check_scene(ir5, depth5, "config5")
     phase_done("phase 7", t0)
@@ -1403,7 +1563,56 @@ def main():
                                   and pass_med < srv["chunk_ms"]):
         fail("server: (d) readback during the render is not shorter than "
              "one chunk")
+    print(f"[server] OBJ parse of the {srv['obj_mib']:.1f} MiB text: "
+          f"load_objs ({srv['obj_parse_route']} tokenizer) "
+          f"{srv['obj_parse_s']:.3f} s; alone, the C++ tokenizer "
+          f"{srv['obj_parse_cpp_s']:.3f} s and the Python tokenizer "
+          f"{srv['obj_parse_python_s']:.3f} s, meshes equal")
+    if srv["obj_parse_route"] != "c++":
+        fail("server: load_objs did not take the C++ tokenizer")
     phase_done("phase 18", t0)
+
+    # ---- 19. the host runtime and pixel sharding -------------------------
+    t0 = time.time()
+    host = host_runtime_path()
+    host.update(lib_build_s=host_build_s, config5_setup_s=config5_setup_s,
+                obj_mib=srv["obj_mib"], obj_parse_s=srv["obj_parse_s"],
+                obj_parse_cpp_s=srv["obj_parse_cpp_s"],
+                obj_parse_python_s=srv["obj_parse_python_s"])
+    print(f"[host] SAH build of {host['tris']} tris (depth {host['depth']}, "
+          f"max leaf {host['max_leaf']}): C++ {host['bvh_cpp_s']:.2f} s, "
+          f"numpy {host['bvh_numpy_s']:.2f} s, perm / node ranges / max "
+          f"leaf equal, boxes bit-equal; host runtime built in "
+          f"{host_build_s:.1f} s; config 5 set-up {config5_setup_s:.1f} s "
+          f"(PR 2's run, with the numpy build: {CONFIG5_NUMPY_SETUP_S} s)")
+    ref = Renderer(cfg, ir)
+    tr.reset_counts()
+    ref.step(4)
+    torch.cuda.synchronize()
+    if (tr.launches, tr.any_hit_launches) != (40, 20):
+        fail(f"sharding: Renderer.step(4) made {tr.launches} launches")
+    ref_passes = ref.state["passes"].cpu().numpy()
+    del ref
+    shard = sharded_path(renderer_passes=ref_passes)
+    del ref_passes
+    for label, run in shard.items():
+        for rank, r in enumerate(run["ranks"]):
+            print(f"[sharding] {label} rank {rank}: {r['ms_per_sample']:.1f} "
+                  f"ms/sample, peak {r['peak_mib']:.0f} MiB, launches "
+                  f"(closest-hit, any-hit) {r['launches']} over 4 samples")
+            if tuple(r["launches"]) != (20, 20):
+                fail(f"sharding {label} rank {rank}: launches "
+                     f"{r['launches']}, expected 5 + 5 per sample")
+        print(f"[sharding] {label}: gathered passes equal Renderer.step(4) "
+              f"bit for bit; {run['wall_s']:.1f} s with the spawn")
+    g = shard["n2_gloo"]["grad"]
+    print(f"[sharding] n2_gloo loss and gradients at {g['res']}x{g['res']}, "
+          f"{g['samples']} samples: loss {g['loss']:.8g} (one process "
+          f"{g['loss_alone']:.8g}, rel diff {g['loss_rel_diff']:.3g}), "
+          f"gradients' max |diff| / leaf max "
+          f"{g['grad_max_diff_over_leaf_max']:.3g} (gate rtol 1e-5). The 2 "
+          f"ranks share one card: no scaling is claimed.")
+    phase_done("phase 19", t0)
 
     src = "elevenrender_tpu_torch/csrc/bvh_traverse.cu"
     row12 = "elevenrender_tpu/ops/bvh_pallas.py:102"
@@ -1572,7 +1781,8 @@ def main():
                           readback_pass_ms_median=pass_med)
     print(json.dumps({"kernels": kern, "instruments": instruments,
                       "counting_ms_per_sample": counting_ms,
-                      "server_path": server_numbers}))
+                      "server_path": server_numbers,
+                      "host_runtime": host, "sharding": shard}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

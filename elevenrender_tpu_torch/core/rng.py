@@ -1,9 +1,11 @@
 """Per-pixel xorshift32 streams seeded by a Jenkins hash.
 
 Port of ``elevenrender_tpu/core/rng.py``: the same generator bit for bit
-(the reference renderer's kernel.cpp:25-47).  torch's uint32 arithmetic
-is partial, so the state is carried as int64 holding a value in
-[0, 2^32): every left shift is masked back to 32 bits.
+(the reference renderer's kernel.cpp:25-47), and ``native_uniform``, a
+decorrelated generator for native mode that makes no parity promise.
+torch's uint32 arithmetic is partial, so the state is carried as int64
+holding a value in [0, 2^32): every left shift is masked back to 32
+bits.
 """
 
 from __future__ import annotations
@@ -59,3 +61,12 @@ def next_float_masked(state: torch.Tensor, mask: torch.Tensor):
     lanes)."""
     new = next_state(state)
     return torch.where(mask, new, state), to_float(new)
+
+
+def native_uniform(generator: torch.Generator, shape) -> torch.Tensor:
+    """Uniform float32 in [0, 1) of ``shape`` from an explicit
+    ``torch.Generator``, on the generator's device.  The JAX package
+    draws these from a threefry key: the two give other numbers, as they
+    promise no bit parity."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=generator.device)

@@ -45,6 +45,15 @@ def lerp(a, b, t):
     return a + t * (b - a)
 
 
+def clampf(a, lo, hi):
+    return torch.clamp(torch.as_tensor(a), lo, hi)
+
+
+def mapf(a, b, c, d, e):
+    """Linear remap of a from [b, c] to [d, e] (Math.hpp:22-24)."""
+    return d + ((a - b) / (c - b)) * (e - d)
+
+
 def limit_uv(u, v):
     """Wrap u, v into [0, 1] by one step of +-1."""
     u = u - (u > 1.0).to(u.dtype) + (u < 0.0).to(u.dtype)

@@ -1,8 +1,8 @@
-"""BVH build: binned SAH, level-order and vectorized numpy (host).
+"""BVH build: binned SAH on the host, in C++ or in vectorized numpy.
 
-The port's copy of the numpy path of ``elevenrender_tpu/ops/bvh.py``
-(``build_bvh``, ``default_depth``, ``preorder_indices``), unchanged in
-its arithmetic so both packages build the same tree:
+The port's copy of ``elevenrender_tpu/ops/bvh.py`` (``build_bvh``,
+``default_depth``, ``preorder_indices``), unchanged in its arithmetic so
+both packages build the same tree:
 
 - a fixed-depth complete binary tree, leaves only at depth D, preorder
   layout with implicit children (left = idx+1, right = idx + 2^(D-d));
@@ -11,10 +11,16 @@ its arithmetic so both packages build the same tree:
 - triangles permuted into leaf order, so a leaf is a contiguous range
   and a hit's tri id is its leaf-order position.
 
-The C++ build in ``native/`` stays with the JAX package.
+``build_bvh`` runs the port's C++ build (``ops/native.py``, from
+``csrc/elevenrt.cpp``) by default, as the JAX package does; it gives the
+numpy build's arrays bit for bit, in a fraction of its time.
+``use_native=False`` or ``ELEVENRT_NATIVE=0`` runs the numpy build level
+by level instead.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -56,17 +62,27 @@ def preorder_indices(depth: int) -> list[np.ndarray]:
     return idx
 
 
-def build_bvh(tri_verts: np.ndarray, depth: int | None = None) -> dict:
+def build_bvh(tri_verts: np.ndarray, depth: int | None = None,
+              use_native: bool | None = None) -> dict:
     """Build the flat BVH arrays.
 
     tri_verts: [T, 3, 3] float32.  Returns a dict of numpy arrays:
       node_bmin/node_bmax [NN,3] f32, node_from/node_to [NN] i32,
       perm [T] i32 (leaf-order permutation of the input tris),
       depth (python int), max_leaf (python int).
+
+    ``use_native`` (default: unless ``ELEVENRT_NATIVE=0``) runs the C++
+    build, which raises if the host library cannot be built; an empty
+    mesh always takes the numpy path.
     """
     T = tri_verts.shape[0]
     if depth is None:
         depth = default_depth(T)
+    if use_native is None:
+        use_native = os.environ.get("ELEVENRT_NATIVE", "1") != "0"
+    if use_native and T > 0:
+        from .native import build_bvh_native
+        return build_bvh_native(np.asarray(tri_verts, np.float32), depth)
     D = depth
     NN = (1 << (D + 1)) - 1
 

@@ -21,11 +21,28 @@ def schlick_fresnel(u):
     return m2 * m2 * m
 
 
+def dielectric_fresnel(cos_theta_i, eta):
+    """Unpolarised Fresnel reflectance of a dielectric; 1 under total
+    internal reflection."""
+    sin_theta_t_sq = eta * eta * (1.0 - cos_theta_i * cos_theta_i)
+    cos_theta_t = torch.sqrt(torch.clamp(1.0 - sin_theta_t_sq, min=0.0))
+    rs = (eta * cos_theta_t - cos_theta_i) / (eta * cos_theta_t + cos_theta_i)
+    rp = (eta * cos_theta_i - cos_theta_t) / (eta * cos_theta_i + cos_theta_t)
+    f = 0.5 * (rs * rs + rp * rp)
+    return torch.where(sin_theta_t_sq > 1.0, torch.ones_like(f), f)
+
+
 def gtr1(n_dot_h, a):
     a2 = a * a
     t = 1.0 + (a2 - 1.0) * n_dot_h * n_dot_h
     val = (a2 - 1.0) / (PIF * torch.log(a2) * t)
     return torch.where(a >= 1.0, torch.full_like(val, 1.0 / PIF), val)
+
+
+def gtr2(n_dot_h, a):
+    a2 = a * a
+    t = 1.0 + (a2 - 1.0) * n_dot_h * n_dot_h
+    return a2 / (PIF * t * t)
 
 
 def gtr2_aniso(n_dot_h, h_dot_x, h_dot_y, ax, ay):

@@ -69,6 +69,21 @@ def pack_hdri(hdri, alias_table: bool | None = None) -> dict:
 # Device samplers
 # --------------------------------------------------------------------------
 
+def binary_search_host(arr: np.ndarray, value: float, length: int) -> int:
+    """The reference's binary search (HDRI.cpp:85-98) on one value: the
+    host's scalar twin of ``binary_search``."""
+    frm, to = 0, length - 1
+    while to - frm > 0:
+        m = frm + (to - frm) // 2
+        if value == arr[m]:
+            return m
+        if value < arr[m]:
+            to = m - 1
+        if value > arr[m]:
+            frm = m + 1
+    return to
+
+
 def binary_search(cdf, value, length: int):
     """The reference's binary search (it returns ``to``, one texel past
     the CDF step for most values), vectorized over ``value``."""

@@ -1,7 +1,7 @@
 """Direction samplers on tensors of uniforms.
 
-Port of the samplers of ``elevenrender_tpu/ops/sampling.py`` that the
-render step uses; each formula keeps the JAX package's evaluation order.
+Port of ``elevenrender_tpu/ops/sampling.py``; each formula keeps the
+JAX package's evaluation order.
 """
 
 from __future__ import annotations
@@ -9,6 +9,14 @@ from __future__ import annotations
 import torch
 
 from ..core.vecmath import PIF, vec3
+
+
+def uniform_sample_sphere(u1, u2):
+    """A uniform direction on the unit sphere (Sampling.h:9-18)."""
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * PIF * u2
+    return vec3(r * torch.cos(phi), r * torch.sin(phi), z)
 
 
 def uniform_circle_sampling(u1, u2, u3):

@@ -73,21 +73,33 @@ def _as_parameters(params: dict):
     return _rebuild(params, iter(flat)), flat
 
 
-def render_beauty(config, ir, n_samples: int, state=None, device="cuda"):
-    """Render n samples and return (the beauty pass [H*W, 3], the state):
-    the linear mean estimate of native accumulation."""
+def render_beauty(config, ir, n_samples: int, state=None, device="cuda",
+                  pixel_offset=0):
+    """Render n samples and return (the beauty pass [npix, 3], the state):
+    the linear mean estimate of native accumulation.  ``state`` (default:
+    the whole image's) may be one shard's slice of the image, whose
+    first pixel is ``pixel_offset``."""
     if state is None:
         state = init_state(config, device)
     for _ in range(n_samples):
-        state = render_sample(config, ir, state, device=device)
+        state = render_sample(config, ir, state, pixel_offset=pixel_offset,
+                              device=device)
     return state["passes"][BEAUTY, :, :3], state
 
 
-def loss_fn(config, ir, params, target, n_samples: int, device="cuda"):
-    """MSE between the rendered beauty pass and ``target`` [H*W, 3]."""
-    img, _ = render_beauty(config, _merge(ir, params), n_samples,
-                           device=device)
-    return torch.mean((img - target) ** 2)
+def loss_fn(config, ir, params, target, n_samples: int, device="cuda",
+            state=None, pixel_offset=0, n_total=None):
+    """MSE between the rendered beauty pass and ``target`` [npix, 3].
+
+    On a shard (``state`` the slice of the image from ``pixel_offset``,
+    ``target`` the same slice): the slice's squared error summed and
+    divided by 3 x ``n_total`` pixels, so the shards' losses sum to the
+    whole image's MSE."""
+    img, _ = render_beauty(config, _merge(ir, params), n_samples, state,
+                           device, pixel_offset)
+    if n_total is None:
+        return torch.mean((img - target) ** 2)
+    return torch.sum((img - target) ** 2) / (n_total * 3)
 
 
 def render_loss_and_grad(config, ir, params, target, n_samples: int,

@@ -8,7 +8,11 @@ glossy Disney material, no textures and no point lights.
 terrain at 999,698 tris with a bilinear 64x64 checker albedo map, a
 nearest 32x32 flat normal map, the sky and one point light.
 
-Both are the JAX package's test scenes of those names
+``cornell_scene(res=32)`` is the Cornell box of the sharded dry run
+(``parallel/dryrun.py``): five walls and a lamp quad from OBJ text, four
+Disney materials, a dark constant environment.
+
+All three are the JAX package's test scenes of those names
 (``tests/scenes.py``): the same geometry, textures, light and camera.
 
 ``mesh_obj_text`` writes a mesh as the OBJ text a client streams to the
@@ -22,13 +26,14 @@ import numpy as np
 from .hdri import HDRI
 from .material import Material
 from .mesh import MeshData
+from .objloader import load_objs
 from .scene import PointLight, Scene
 from .tangents import compute_tangents
 from .texture import Texture
 
 
-def heightfield_mesh(grid: int = 128, seed: int = 0) -> MeshData:
-    """A grid x grid noisy heightfield -> 2*(grid-1)^2 triangles."""
+def heightfield_tris(grid: int = 128, seed: int = 0) -> np.ndarray:
+    """The heightfield's 2*(grid-1)^2 triangles [T, 3, 3] f32 alone."""
     rng = np.random.default_rng(seed)
     xs = np.linspace(-2, 2, grid, dtype=np.float32)
     zs = np.linspace(-2, 2, grid, dtype=np.float32)
@@ -43,7 +48,12 @@ def heightfield_mesh(grid: int = 128, seed: int = 0) -> MeshData:
     i3 = P[:-1, 1:]
     t1 = np.stack([i0, i1, i2], axis=2).reshape(-1, 3, 3)
     t2 = np.stack([i0, i2, i3], axis=2).reshape(-1, 3, 3)
-    verts = np.concatenate([t1, t2]).astype(np.float32)
+    return np.concatenate([t1, t2]).astype(np.float32)
+
+
+def heightfield_mesh(grid: int = 128, seed: int = 0) -> MeshData:
+    """A grid x grid noisy heightfield -> 2*(grid-1)^2 triangles."""
+    verts = heightfield_tris(grid, seed)
     T = verts.shape[0]
 
     e1 = verts[:, 1] - verts[:, 0]
@@ -146,3 +156,90 @@ def textured_heightfield_scene(grid: int = 708, res: int = 1024,
         position=np.array([1.5, 3.0, -1.0], np.float32),
         radiance=np.array([6.0, 5.5, 5.0], np.float32)))
     return _sky_camera_and_build(scene, res, spp, compat, bvh_depth, device)
+
+
+# The Cornell box: floor, ceiling, back, left and right walls and an
+# emissive quad under the ceiling, as OBJ text (z is negated by the
+# loader, as the reference negates it).
+CORNELL_OBJ = """
+o floor
+usemtl white
+v -1 0 -1
+v  1 0 -1
+v  1 0  1
+v -1 0  1
+vn 0 1 0
+f 1//1 2//1 3//1
+f 1//1 3//1 4//1
+o ceiling
+usemtl white
+v -1 2 -1
+v  1 2 -1
+v  1 2  1
+v -1 2  1
+vn 0 -1 0
+f 5//2 7//2 6//2
+f 5//2 8//2 7//2
+o back
+usemtl white
+v -1 0 -1
+v  1 0 -1
+v  1 2 -1
+v -1 2 -1
+vn 0 0 1
+f 9//3 10//3 11//3
+f 9//3 11//3 12//3
+o left
+usemtl red
+v -1 0 -1
+v -1 0  1
+v -1 2  1
+v -1 2 -1
+vn 1 0 0
+f 13//4 14//4 15//4
+f 13//4 15//4 16//4
+o right
+usemtl green
+v 1 0 -1
+v 1 0  1
+v 1 2  1
+v 1 2 -1
+vn -1 0 0
+f 17//5 19//5 18//5
+f 17//5 20//5 19//5
+o lamp
+usemtl lamp
+v -0.4 1.98 -0.4
+v  0.4 1.98 -0.4
+v  0.4 1.98  0.4
+v -0.4 1.98  0.4
+vn 0 -1 0
+f 21//6 23//6 22//6
+f 21//6 24//6 23//6
+"""
+
+
+def cornell_scene(res: int = 64, compat: bool = True, spp: int = 4,
+                  bvh_depth=None, device="cuda"):
+    """The Cornell box (12 tris) lit by its lamp under a dark constant
+    environment.  Returns (scene, config, ir)."""
+    scene = Scene()
+    scene.add_meshes(load_objs(CORNELL_OBJ)[0])
+    for name, albedo, emission in (
+            ("white", [0.73, 0.73, 0.73], None),
+            ("red", [0.65, 0.05, 0.05], None),
+            ("green", [0.12, 0.45, 0.15], None),
+            ("lamp", [0.0, 0.0, 0.0], [15.0, 15.0, 15.0])):
+        mat = Material(name=name, albedo=np.array(albedo, np.float32))
+        if emission is not None:
+            mat.emission = np.array(emission, np.float32)
+        mat.compute_aniso_alphas()
+        scene.add_material(mat)
+    scene.add_hdri(HDRI(Texture.from_color([0.05, 0.05, 0.05])))
+    scene.camera.position = np.array([0.0, 1.0, -3.5], np.float32)
+    scene.camera.rotation = np.zeros(3, np.float32)
+    scene.x_res = res
+    scene.y_res = res
+    config, ir = scene.build(bvh_depth=bvh_depth, device=device)
+    config = config.replace(sample_target=spp, compat=compat)
+    return scene, config, ir

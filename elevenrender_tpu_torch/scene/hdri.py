@@ -1,7 +1,8 @@
 """HDRI environment with its luminance CDF (host side, numpy).
 
 The port's copy of ``elevenrender_tpu/scene/hdri.py``: the row-major
-per-texel luminance CDF and the radiance sum the device samplers read.
+per-texel luminance CDF and the radiance sum the device samplers read,
+and the host's solid-angle pdf and CDF inversion (``pdf``, ``sample``).
 The default environment is a constant 0.5 grey.
 """
 
@@ -35,3 +36,21 @@ class HDRI:
         cdf[0] = 0.0
         np.cumsum(lum / max(self.radiance_sum, 1e-30), out=cdf[1:])
         self.cdf = cdf.astype(np.float32)
+
+    def pdf(self, x: int, y: int) -> float:
+        """Solid-angle pdf of texel (x, y): its luminance share over the
+        sphere's 2 pi sin(theta) per texel row (the reference's
+        HDRI.cpp:101-107)."""
+        dv = self.texture.value_at(x, y)
+        theta = (float(y) / float(self.texture.height)) * np.pi
+        return (float(dv.sum()) / self.radiance_sum) * self.texture.width * \
+            self.texture.height / (2.0 * np.pi * np.sin(theta))
+
+    def sample(self, r1: float) -> tuple[int, int]:
+        """Invert the CDF at ``r1`` -> texel (x, y), with the reference's
+        binary search and its one-off quirk (``ops.hdri.binary_search_host``,
+        the scalar twin of the device sampler)."""
+        from ..ops.hdri import binary_search_host
+        count = binary_search_host(self.cdf, r1,
+                                   self.texture.width * self.texture.height)
+        return count % self.texture.width, count // self.texture.width

@@ -12,10 +12,12 @@ reference's rapidobj-based ObjLoader):
   (ObjLoader.cpp:53-66: n += cross(edge2, edge1), note the winding);
 - tangents per mesh (``scene/tangents.py``).
 
-The parser is a single-pass Python tokenizer with numpy batch
-conversion, and it is the only one: the JAX package hands texts above
-2 MB to its C++ tokenizer (``ops/native.py``), which gives the same
-arrays and which the port does not have yet.
+Two tokenizers, switched on the text's size as the JAX package switches:
+up to 2,000,000 characters a single-pass Python tokenizer with numpy
+batch conversion; above that the C++ two-pass tokenizer of the host
+runtime (``ops/native.py``), whose shapes are keyed by name (two ``o``
+blocks of one name are one shape) and whose shapes with any face
+without a normal get face normals on every tri.
 """
 
 from __future__ import annotations
@@ -107,15 +109,68 @@ def _read_text(obj_source) -> str:
     raise TypeError(type(obj_source))
 
 
+# Texts longer than this go to the C++ tokenizer.
+NATIVE_MIN_CHARS = 2_000_000
+
+
+def _load_objs_native(text: str, recompute_normals: bool) -> list[MeshData]:
+    """The C++ tokenizer's flat arrays -> MeshData per shape, post-processed
+    as the JAX package does it (normal epsilon 1e-12 there, 1e-20 in the
+    Python path)."""
+    from ..ops.native import parse_obj_native
+    tri_pos, tri_nrm, tri_uv, tri_shape, tri_mat, mat_names, shape_names = \
+        parse_obj_native(text)
+    meshes: list[MeshData] = []
+    for sid in range(len(shape_names) or (1 if len(tri_pos) else 0)):
+        sel = tri_shape == sid
+        verts = np.ascontiguousarray(tri_pos[sel])
+        nrm = tri_nrm[sel]
+        uv = np.ascontiguousarray(tri_uv[sel])
+        if verts.shape[0] == 0:
+            continue
+        if not np.isfinite(nrm).all():
+            # A face without a normal: face normals for every tri of the
+            # shape, reference winding.
+            e1 = verts[:, 1] - verts[:, 0]
+            e2 = verts[:, 2] - verts[:, 0]
+            fn = np.cross(e2, e1)
+            ln = np.linalg.norm(fn, axis=-1, keepdims=True)
+            fn = np.where(ln > 1e-12, fn / np.maximum(ln, 1e-12), fn)
+            nrm = np.repeat(fn[:, None, :], 3, axis=1)
+        else:
+            ln = np.linalg.norm(nrm, axis=-1, keepdims=True)
+            nrm = np.where(ln > 1e-12, nrm / np.maximum(ln, 1e-12), nrm)
+        nrm = np.ascontiguousarray(nrm, np.float32)
+        if recompute_normals:
+            nrm = recompute_normals_face_weight(verts)
+        tan, signs = compute_tangents(verts, uv, nrm)
+        mats = [mat_names[m] if 0 <= m < len(mat_names) else ""
+                for m in tri_mat[sel]]
+        meshes.append(MeshData(
+            name=shape_names[sid] if sid < len(shape_names) else "",
+            verts=verts, normals=nrm, uvs=uv, tangents=tan,
+            tangent_signs=signs, mat_names=mats))
+    return meshes
+
+
 def load_objs(obj_source, mtl_text: str | None = None,
               recompute_normals: bool = False
               ) -> tuple[list[MeshData], list[Material]]:
     """Parse OBJ text (path, str, or file-like) into MeshData per shape.
 
     Returns (meshes, materials from ``mtl_text``), as the reference's
-    ObjLoader::loadObjsRapid (ObjLoader.cpp:69-164)."""
+    ObjLoader::loadObjsRapid (ObjLoader.cpp:69-164).  Texts above
+    ``NATIVE_MIN_CHARS`` go through the C++ tokenizer."""
     text = _read_text(obj_source)
+    materials = parse_mtl(mtl_text) if mtl_text else []
+    if len(text) > NATIVE_MIN_CHARS:
+        return _load_objs_native(text, recompute_normals), materials
+    return _load_objs_python(text, recompute_normals), materials
 
+
+def _load_objs_python(text: str, recompute_normals: bool) -> list[MeshData]:
+    """The Python tokenizer: a new shape at every ``o`` / ``g`` line that
+    follows faces, whatever its name."""
     positions: list[list[str]] = []
     normals: list[list[str]] = []
     texcoords: list[list[str]] = []
@@ -161,8 +216,6 @@ def load_objs(obj_source, mtl_text: str | None = None,
          else np.zeros((0, 3), np.float32))
     UV = (np.array(texcoords, np.float32) if texcoords
           else np.zeros((0, 2), np.float32))
-
-    materials = parse_mtl(mtl_text) if mtl_text else []
 
     meshes: list[MeshData] = []
     for shape_name, faces in shapes:
@@ -212,5 +265,4 @@ def load_objs(obj_source, mtl_text: str | None = None,
             name=shape_name, verts=np.ascontiguousarray(verts, np.float32),
             normals=nrm, uvs=uv, tangents=tan, tangent_signs=signs,
             mat_names=mat_names))
-
-    return meshes, materials
+    return meshes

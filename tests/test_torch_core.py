@@ -84,3 +84,36 @@ def test_vecmath_matches_jax(fn):
         want = jvm.reflect(jnp.asarray(a), jnp.asarray(b))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("fn", ["clampf", "mapf"])
+def test_clampf_and_mapf_match_jax(fn):
+    rng = np.random.default_rng(6)
+    a = rng.normal(0, 2, 513).astype(np.float32)
+    a[:3] = [np.nan, np.inf, -np.inf]
+    if fn == "clampf":
+        got = tvm.clampf(torch.tensor(a), -1.0, 0.5).numpy()
+        want = np.asarray(jvm.clampf(jnp.asarray(a), -1.0, 0.5))
+        assert tvm.clampf(3.0, 0.0, 1.0).item() == 1.0
+    else:
+        args = (-2.0, 3.0, 10.0, -4.0)
+        got = tvm.mapf(torch.tensor(a), *args).numpy()
+        want = np.asarray(jvm.mapf(jnp.asarray(a), *args))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_native_uniform_shape_range_and_generator():
+    """No bit parity with the JAX package's threefry draw (neither
+    promises one): float32 of the asked shape in [0, 1) on the
+    generator's device, the same numbers from the same seed, and a
+    stream that moves on."""
+    g = torch.Generator().manual_seed(7)
+    a = trng.native_uniform(g, (64, 33))
+    b = trng.native_uniform(g, (64, 33))
+    assert a.shape == (64, 33) and a.dtype == torch.float32
+    assert a.device == g.device
+    assert float(a.min()) >= 0.0 and float(a.max()) < 1.0
+    assert not torch.equal(a, b)
+    again = torch.Generator().manual_seed(7)
+    assert torch.equal(trng.native_uniform(again, (64, 33)), a)
+    assert abs(float(torch.cat([a, b]).mean()) - 0.5) < 0.02

@@ -47,6 +47,72 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 (path, name)
 
 
+def _string_constants(path):
+    """The string constants of ``path`` that are not docstrings."""
+    tree = ast.parse(open(path).read(), path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_no_port_file_names_a_path_under_native_or_the_jax_package():
+    """The port keeps its own copies (``csrc/elevenrt.cpp`` among them):
+    no string in its code, or in chip_smoke.py's, names a file under
+    ``native/`` or ``elevenrender_tpu/``.  The one allowed form is a
+    citation ``elevenrender_tpu/<file>.py:<line>``, the "replaces" entry
+    of chip_smoke.py's kernel table, which is never opened."""
+    import re
+    cite = re.compile(r"^elevenrender_tpu/[\w/]+\.py:\d+\b")
+    jax_path = re.compile(r"(^|[^\w])elevenrender_tpu[/\\]")
+    native = re.compile(r"(^|[^\w])native[/\\]|^native$|libelevenrt\.so")
+    for path in _port_files():
+        for text in _string_constants(path):
+            assert not native.search(text), (path, text)
+            assert not jax_path.search(text) or cite.match(text), (path, text)
+
+
+def test_the_port_alone_builds_its_host_runtime_and_loads_objs(tmp_path):
+    """A copy of the port without ``native/`` or ``elevenrender_tpu/``
+    beside it builds its C++ runtime from its own source, and the C++
+    tokenizer and SAH build run there."""
+    import shutil
+    shutil.copytree(PORT, tmp_path / "elevenrender_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = """
+import os
+from elevenrender_tpu_torch import kernels
+from elevenrender_tpu_torch.ops import bvh
+from elevenrender_tpu_torch.scene import demo, objloader
+assert kernels.BUILD_DIR == kernels.Path(os.getcwd()) / "build" / "kernels"
+mesh = demo.heightfield_mesh(80)
+text = demo.mesh_obj_text(mesh)
+assert len(text) > objloader.NATIVE_MIN_CHARS
+meshes, _ = objloader.load_objs(text)
+assert [m.name for m in meshes] == ["heightfield"]
+assert (meshes[0].verts == mesh.verts).all()
+assert kernels.build_info["elevenrt"]["seconds"] > 0
+native = bvh.build_bvh(mesh.verts[:3000])
+plain = bvh.build_bvh(mesh.verts[:3000], use_native=False)
+assert all((native[k] == plain[k]).all() for k in ("perm", "node_bmin"))
+print("alone ok", len(text))
+"""
+    res = subprocess.run([sys.executable, "-c", _BLOCK + code],
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "alone ok" in res.stdout
+    assert sorted(os.listdir(tmp_path)) == ["build",
+                                            "elevenrender_tpu_torch"]
+
+
 def _run(code, **kw):
     return subprocess.run([sys.executable, "-c", _BLOCK + code], cwd=REPO,
                           capture_output=True, text=True, timeout=300, **kw)

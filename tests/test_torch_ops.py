@@ -76,6 +76,7 @@ def test_camera_ray(bokeh):
 
 
 @pytest.mark.parametrize("name", ["uniform_circle_sampling",
+                                  "uniform_sample_sphere",
                                   "cosine_sample_hemisphere",
                                   "importance_sample_ggx"])
 def test_samplers(name):
@@ -341,3 +342,32 @@ def test_counting_sort_for_packets_equals_jax(masked, dir_major):
     if masked:  # the dead lanes share the last bucket, in their own order
         dead = np.nonzero(~mask)[0]
         assert (np.diff(ti.numpy()[dead]) > 0).all()
+
+
+@pytest.mark.parametrize("fn", ["gtr2", "dielectric_fresnel"])
+def test_gtr2_and_dielectric_fresnel(fn):
+    """The two Disney helpers no render path calls, on the same inputs;
+    eta spans 0.4..2.5, so the Fresnel term meets total internal
+    reflection."""
+    r = _u(seed=11, k=2)
+    x = r[0]
+    y = (0.001 + r[1]) if fn == "gtr2" else (0.4 + 2.1 * r[1])
+    want = np.asarray(getattr(jdis, fn)(jnp.asarray(x), jnp.asarray(y)))
+    got = getattr(tdis, fn)(_T(x), _T(y)).numpy()
+    _close(got, want)
+    if fn == "dielectric_fresnel":
+        tir = y * y * (1.0 - x * x) > 1.0
+        assert tir.any() and (got[tir] == 1.0).all()
+
+
+def test_binary_search_host_equals_jax_and_the_device_search():
+    cdf = np.concatenate([[0.0], np.cumsum(
+        np.random.default_rng(12).uniform(0, 1, 63))]).astype(np.float32)
+    cdf /= cdf[-1]
+    values = np.concatenate([_u(200, seed=13), cdf[[0, 5, 17, 63]],
+                             [1.0, 0.0]]).astype(np.float32)
+    got = [thdri.binary_search_host(cdf, float(v), 64) for v in values]
+    want = [jhdri.binary_search_host(cdf, float(v), 64) for v in values]
+    assert got == want
+    dev = thdri.binary_search(torch.tensor(cdf), torch.tensor(values), 64)
+    assert dev.tolist() == got

@@ -101,3 +101,18 @@ def test_render_config_has_the_jax_fields_and_defaults():
             == dataclasses.asdict(JaxConfig()))
     assert ([f.name for f in dataclasses.fields(RenderConfig)]
             == [f.name for f in dataclasses.fields(JaxConfig)])
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 3), (9, 7, 1)])
+def test_hdri_pdf_and_sample_equal_jax(shape):
+    img = np.random.default_rng(8).uniform(0, 2, shape).astype(np.float32)
+    img[2, 3] = 40.0
+    got = HDRI(Texture("sky", img))
+    ref = JaxHDRI(JaxTexture("sky", img))
+    h, w = shape[:2]
+    for y in range(1, h):
+        for x in range(0, w, 3):
+            assert got.pdf(x, y) == ref.pdf(x, y), (x, y)
+    for r1 in np.concatenate([np.random.default_rng(9).uniform(size=300),
+                              got.cdf[[0, 1, 7]], [1.0]]):
+        assert got.sample(float(r1)) == ref.sample(float(r1)), r1
