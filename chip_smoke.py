@@ -61,13 +61,17 @@ result line is printed):
     bounces, 8 samples on the 65,522-tri scene (pass 1 records, pass 2
     replays), its time, rays/s and peak memory; then one sample under
     each other (order, leaf_aabb) variant: the same loss.
-15. the frontier-K walk (K = 2, 4, 8 closest-hit, K = 4 any-hit too), the
-    8-wide walk and binary-v1 (closest-hit and any-hit) against their
-    plain versions at 65,522 and 999,698 tris, on 65,536 camera rays,
-    65,536 random rays and a 65,536-ray strided subset of the recorded
-    bounce-1 and shadow launches, and on the main path's full recorded
-    launches: ids equal, t bit-equal, counters equal, the same deepest
-    stack, no push refused;
+15. the frontier-K walk (csrc/bvh_frontier.cu, every K = 2..8,
+    closest-hit and any-hit), the 8-wide walk (csrc/bvh_wide.cu; both
+    one ray per lane tile, the warp's leaf scans pooled) and binary-v1
+    (closest-hit and any-hit) against their plain versions at 65,522 and
+    999,698 tris, on 65,536 camera rays, 65,536 random rays and a
+    65,536-ray strided subset of the recorded bounce-1 and shadow
+    launches, on the main path's full recorded launches (K = 2, 4, 8 and
+    the wide walk closest-hit, K = 4 any-hit), and on the random rays cut
+    to 65,535, 33, 31 and 1 (every K and the wide walk: the persistent
+    grid's hand-out): ids equal, t bit-equal, counters equal with and
+    without count_steps, the same deepest stack, no push refused;
 16. the traversal A/B sweep (elevenrender_tpu_torch/sweep_traverse.py) at
     full width, 1,048,576 rays per launch, on both scenes: coherent
     camera rays, those shuffled and Morton-sorted, and the recorded
@@ -1202,8 +1206,11 @@ def main():
                   f"{gap:.3g}; 10 launches of this variant")
         return launches
 
+    # Rows 5 and 6 as the kernel table reports them (timed by the sweep,
+    # phase 16), and every frontier the kernel serves (checked in phase 15).
     NEW_WALKS = ([sweep.frontier_name(k) for k in (2, 4, 8)] + [sweep.WIDE])
     ANY_HIT_WALK = sweep.frontier_name(sweep.ANY_HIT_FRONTIER)
+    FRONTIER_WALKS = [sweep.frontier_name(k) for k in tr.FRONTIERS]
 
     def plain_of(walk, kernel, o, d, ex, tm):
         """The plain version of ``kernel`` on the same (card) tensors,
@@ -1221,18 +1228,53 @@ def main():
             ex, tm, count_steps=True)
         return out, dict(tr.frontier_stack)
 
+    def same_as_plain(what, walk, kernel, o, d, ex, tm):
+        """One kernel of rows 5-6 (or binary-v1) and its plain version on
+        the same rays: ids equal, t bit-equal, counters equal on every
+        ray, with and without count_steps; the frontier's deepest stack
+        equal and no push refused.  Returns (plain ms, max |t - t_plain|,
+        the frontier's stack or None)."""
+        ki, kt, kc = sweep.run(walk, kernel, o, d, ex, tm, count_steps=True)
+        k_stack = dict(tr.frontier_stack)
+        ki2, kt2 = sweep.run(walk, kernel, o, d, ex, tm)
+        torch.cuda.synchronize()
+        ta = time.time()
+        (pi, pt, pc), p_stack = plain_of(walk, kernel, o, d, ex, tm)
+        torch.cuda.synchronize()
+        took = (time.time() - ta) * 1e3
+        if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
+            fail(f"{what}: kernel and plain version differ on "
+                 f"{int(((ki != pi) | (kt != pt)).sum())} rays")
+        if not torch.equal(kc, pc):
+            fail(f"{what}: counters differ on "
+                 f"{int((kc != pc).any(dim=1).sum())} rays")
+        if not (torch.equal(ki, ki2) and torch.equal(kt, kt2)):
+            fail(f"{what}: count_steps changed the result")
+        if p_stack is not None:
+            if k_stack != p_stack:
+                fail(f"{what}: stack {k_stack} in the kernel, {p_stack} in "
+                     f"the plain version")
+            if p_stack["refused"]:
+                fail(f"{what}: {p_stack['refused']} pushes refused")
+        gap = float(torch.nan_to_num(kt - pt, nan=0.0).abs().max()
+                    ) if kt.numel() else 0.0
+        return took, gap, p_stack
+
     def check_new_walks(label, walk, rays, recorded, full):
         """Rows 5 and 6, and binary-v1, against their plain versions: the
-        frontier-K walk (K = 2, 4, 8 closest-hit, K = 4 any-hit), the
+        frontier-K walk for every K = 2..8, closest-hit and any-hit, the
         8-wide walk and binary-v1 (closest-hit and any-hit) on 65,536
-        camera rays, 65,536 random rays (closest-hit, and any-hit for K =
-        4 and binary-v1) and a 65,536-ray strided subset of the recorded
-        bounce-1 and shadow launches; with ``full`` also on those whole
-        launches, where the plain version is timed.  ids equal, t
-        bit-equal, counters equal on every ray, with and without
-        count_steps; the frontier's deepest stack equal and no push
-        refused.  Returns {(kernel, mode): (plain ms, max |t - t_plain|)}
-        at the full launches."""
+        camera rays, 65,536 random rays (closest-hit and any-hit) and a
+        65,536-ray strided subset of the recorded bounce-1 and shadow
+        launches; with ``full`` also on those whole launches, where the
+        plain version is timed (the walks of the kernel table only: K =
+        2, 4, 8 and the wide walk closest-hit, K = 4 any-hit); then the
+        random rays cut to the ragged counts of phase 3, every K and the
+        wide walk (check_new_walks_ragged).  ids equal, t bit-equal,
+        counters equal on every ray, with and without count_steps; the
+        frontier's deepest stack equal and no push refused.  Returns
+        {(kernel, mode): (plain ms, max |t - t_plain|)} at the full
+        launches."""
         def strided(rays_):
             step = max(rays_[0].shape[0] // 65536, 1)
             return tuple(None if x is None else x[::step].contiguous()
@@ -1252,38 +1294,21 @@ def main():
         deepest = {}
         for name, o, d, ex, tm in sets:
             mode = "closest" if ex is None else "any-hit"
-            for kernel in (NEW_WALKS + [sweep.V1] if ex is None
-                           else [ANY_HIT_WALK, sweep.V1]):
-                what = f"{label} {name} {mode} {kernel}"
-                ki, kt, kc = sweep.run(walk, kernel, o, d, ex, tm,
-                                       count_steps=True)
-                k_stack = dict(tr.frontier_stack)
-                ki2, kt2 = sweep.run(walk, kernel, o, d, ex, tm)
-                torch.cuda.synchronize()
-                ta = time.time()
-                (pi, pt, pc), p_stack = plain_of(walk, kernel, o, d, ex, tm)
-                torch.cuda.synchronize()
-                took = (time.time() - ta) * 1e3
-                if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
-                    fail(f"{what}: kernel and plain version differ on "
-                         f"{int(((ki != pi) | (kt != pt)).sum())} rays")
-                if not torch.equal(kc, pc):
-                    fail(f"{what}: counters differ on "
-                         f"{int((kc != pc).any(dim=1).sum())} rays")
-                if not (torch.equal(ki, ki2) and torch.equal(kt, kt2)):
-                    fail(f"{what}: count_steps changed the result")
+            whole = name in ("recorded bounce 1", "recorded shadow")
+            if ex is None:
+                walks = NEW_WALKS if whole else FRONTIER_WALKS + [sweep.WIDE]
+            else:
+                walks = [ANY_HIT_WALK] if whole else FRONTIER_WALKS
+            for kernel in walks + [sweep.V1]:
+                took, gap, p_stack = same_as_plain(
+                    f"{label} {name} {mode} {kernel}", walk, kernel, o, d,
+                    ex, tm)
                 if p_stack is not None:
-                    if k_stack != p_stack:
-                        fail(f"{what}: stack {k_stack} in the kernel, "
-                             f"{p_stack} in the plain version")
-                    if p_stack["refused"]:
-                        fail(f"{what}: {p_stack['refused']} pushes refused")
                     deepest[kernel] = max(deepest.get(kernel, 0),
                                           p_stack["deepest"])
                 checked += 1
-                if name in ("recorded bounce 1", "recorded shadow"):
-                    gap = torch.nan_to_num(kt - pt, nan=0.0).abs().max()
-                    out[(kernel, mode)] = (took, float(gap))
+                if whole:
+                    out[(kernel, mode)] = (took, gap)
         rows = {k: tr.frontier_stack_rows(int(k.split("=")[1]), walk["depth"])
                 for k in deepest}
         print(f"[new walks] {label}: {checked} (kernel, ray set) pairs, each "
@@ -1291,7 +1316,31 @@ def main():
               f"equal, t bit-equal, counters equal to the plain version on "
               f"every ray; no push refused, deepest stack (of its rows) "
               f"{ {k: f'{v} of {rows[k]}' for k, v in deepest.items()} }")
+        check_new_walks_ragged(label, walk, rnd)
         return out
+
+    def check_new_walks_ragged(label, walk, rnd):
+        """The lane-tile kernels' persistent hand-out (a tile takes runs of
+        4 rays) at the ray counts of phase 3's ragged checks: the first n
+        random rays, every K closest-hit and any-hit and the wide walk,
+        with count_steps; as same_as_plain."""
+        o, d, closest, t_max = rnd
+        checked = 0
+        for n_ in RAGGED:
+            for kernel in FRONTIER_WALKS + [sweep.WIDE]:
+                modes = [(None, None)]
+                if kernel != sweep.WIDE:
+                    modes.append((closest[:n_], t_max[:n_]))
+                for ex, tm in modes:
+                    same_as_plain(
+                        f"{label} {n_} random rays "
+                        f"{'closest' if ex is None else 'any-hit'} {kernel}",
+                        walk, kernel, o[:n_], d[:n_], ex, tm)
+                    checked += 1
+        print(f"[new walks] {label}: random rays cut to {RAGGED} rays, every "
+              f"K closest-hit and any-hit and the wide walk ({checked} "
+              f"launches with count_steps, each beside one without): ids, t, "
+              f"counters and stack equal to the plain version's")
 
     def sweep_at_full_width(label, walk, ir_, recorded, res):
         """sweep_traverse's loop on one scene at res x res rays per
@@ -1721,13 +1770,43 @@ def main():
             fail(f"{kernel} was launched {on_render_paths} times on a "
                  f"render path")
         t = dict(r_, plain_ms=new_plain[(kernel, mode)][0])
+        cells = {(sc, rs): c_ for (sc, rs, k_), c_ in by_cell.items()
+                 if k_ == kernel and c_["mode"] == r_["mode"]}
+        # The lane-tile design's resources at each scene's depth: shared
+        # memory a block (the warps' scan scratch and the tiles' stacks)
+        # and the blocks that fit on an SM (the persistent grid's factor).
+        if wide:
+            levels = {sc: len(bvh_wide.level_offsets(dep))
+                      for sc, dep in (("65,522 tris", depth),
+                                      ("999,698 tris", depth5))}
+            shared = {sc: bvh_wide.shared_bytes(m) for sc, m in levels.items()}
+            fit = {sc: bvh_wide.blocks_per_sm("cuda", m)
+                   for sc, m in levels.items()}
+        else:
+            k_ = int(kernel.split("=")[1])
+            shared = {sc: tr.frontier_shared_bytes(k_, dep)
+                      for sc, dep in (("65,522 tris", depth),
+                                      ("999,698 tris", depth5))}
+            fit = {sc: tr.frontier_blocks_per_sm("cuda", k_, dep)
+                   for sc, dep in (("65,522 tris", depth),
+                                   ("999,698 tris", depth5))}
         extra = {"launches_render_paths": 0,
+                 "design": ("one ray per lane tile, the warp's leaf scans "
+                            "pooled, stacks in shared memory, persistent "
+                            "grid"),
+                 "tile_lanes": (bvh_wide.WIDE if wide
+                                else tr.frontier_tile(int(kernel.split("=")[1]))),
                  "counters_per_ray": r_["counters"],
                  "vs_binary": r_["vs_binary"],
-                 "ms_by_ray_set": {
-                     f"{sc} {rs}": c_["ms"]
-                     for (sc, rs, k_), c_ in by_cell.items()
-                     if k_ == kernel and c_["mode"] == r_["mode"]},
+                 "share_of_bound": r_["bound_ms"] / r_["ms"],
+                 "ms_by_ray_set": {f"{sc} {rs}": c_["ms"]
+                                   for (sc, rs), c_ in cells.items()},
+                 "vs_binary_by_ray_set": {f"{sc} {rs}": c_["vs_binary"]
+                                          for (sc, rs), c_ in cells.items()},
+                 "bound_ms_by_ray_set": {f"{sc} {rs}": c_["bound_ms"]
+                                         for (sc, rs), c_ in cells.items()},
+                 "shared_bytes_per_block": shared,
+                 "blocks_per_sm": fit,
                  **ptxas_of(lib, "Lb0E" if wide else
                             f"ILi{kernel.split('=')[1]}ELb0E")}
         kern.append(entry(

@@ -13,7 +13,10 @@ JAX package); ``sweep_traverse`` measures it beside the binary walk.
 ``traverse_wide`` launches ``csrc/bvh_wide.cu`` on CUDA tensors or
 raises; on CPU tensors, and only there, it runs ``traverse_wide_plain``,
 the same walk as lockstep PyTorch, which gives the same ids, bit-equal t
-and the same counters.  Closest-hit only, as the TPU kernel.
+and the same counters.  Closest-hit only, as the TPU kernel.  The kernel
+walks one ray per tile of ``WIDE`` lanes, lane e owning child e, with the
+ray's stack (``stack_rows``) in shared memory (``shared_bytes`` a block),
+on a persistent grid (``ops/traverse.tile_grid``) fed by a work counter.
 
 Tables (``pack_bvh_wide``), the port's layout of the reference's content:
   nodes8 f32 [R, 8, 8]: row of wide node (k, i) at level_offsets[k] + i;
@@ -38,10 +41,13 @@ from ..ops.bvh import preorder_indices
 from ..ops.traverse import (_check, _groups_of_8, _leaf_scan, _outputs,
                             _ptr, _slab)
 
-WIDE = 8
+WIDE = 8         # also the lanes of the tile that walks one ray
 MAX_LEVELS = 8   # csrc/bvh_wide.cu kMaxLevels: depth <= 24
 FAR = 1e30       # the padded children of a short root
 _INDEX_BITS = 28
+# The wide kernel's scan scratch, per warp: a range table of 32 (start,
+# shift) int32 pairs and one 8-byte key for each of its 4 tiles.
+SCRATCH = 2 * 32 * 4 + 4 * 8
 
 
 def wide_levels(depth: int) -> list[int]:
@@ -65,6 +71,25 @@ def level_offsets(depth: int) -> list[int]:
 def root_children(depth: int) -> int:
     levels = wide_levels(depth)
     return 1 << (levels[1] if len(levels) > 1 else depth)
+
+
+def stack_rows(n_levels: int) -> int:
+    """Entries of the wide walk's per-ray stack for a tree of ``n_levels``
+    wide levels: 7 a level (the passing children other than the one
+    descended into) and the sentinel, with room to spare."""
+    return 7 * n_levels + 4
+
+
+def shared_bytes(n_levels: int) -> int:
+    """Dynamic shared memory of one block of the wide kernel: each warp's
+    ``SCRATCH``, then one stack of ``stack_rows`` int32 for each of its
+    tiles of ``WIDE`` lanes.  Raises where a tree has more wide levels than
+    the kernel serves."""
+    if not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError(f"{n_levels} wide levels: the kernel serves 1.."
+                         f"{MAX_LEVELS}")
+    threads = traverse_ops.TILE_THREADS
+    return threads // 32 * SCRATCH + threads // WIDE * stack_rows(n_levels) * 4
 
 
 def pack_bvh_wide(bvh: dict) -> dict:
@@ -126,21 +151,63 @@ def _library():
     global _lib
     if _lib is None:
         from .. import kernels
-        lib = kernels.load("bvh_wide")
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.bvh_wide.argtypes = ([p] * 8 + [i, ctypes.POINTER(ctypes.c_int)]
-                                 + [i] * 3 + [p])
-        lib.bvh_wide.restype = ctypes.c_int
-        lib.bvh_wide_max_levels.argtypes = []
-        lib.bvh_wide_max_levels.restype = ctypes.c_int
-        lib.bvh_wide_error_string.argtypes = [ctypes.c_int]
-        lib.bvh_wide_error_string.restype = ctypes.c_char_p
-        if lib.bvh_wide_max_levels() != MAX_LEVELS:
-            raise RuntimeError("csrc/bvh_wide.cu kMaxLevels and MAX_LEVELS "
-                               "disagree")
-        _lib = lib
+        _lib = bind(kernels.load("bvh_wide"))
     return _lib
+
+
+def bind(lib):
+    """``lib`` (a build of csrc/bvh_wide.cu, or of a variant of it that
+    keeps its C interface) with its entry points typed and its sizing
+    checked against this module's."""
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.bvh_wide.argtypes = ([p] * 9 + [i, ctypes.POINTER(ctypes.c_int)]
+                             + [i] * 4 + [p])
+    lib.bvh_wide.restype = ctypes.c_int
+    lib.bvh_wide_blocks_per_sm.argtypes = [i, i, p]
+    lib.bvh_wide_blocks_per_sm.restype = ctypes.c_int
+    lib.bvh_wide_shared_bytes.argtypes = [i]
+    lib.bvh_wide_shared_bytes.restype = ctypes.c_int
+    lib.bvh_wide_error_string.argtypes = [ctypes.c_int]
+    lib.bvh_wide_error_string.restype = ctypes.c_char_p
+    for name in ("max_levels", "threads"):
+        getattr(lib, f"bvh_wide_{name}").restype = ctypes.c_int
+    c_side = (lib.bvh_wide_max_levels(), lib.bvh_wide_threads())
+    want = (MAX_LEVELS, traverse_ops.TILE_THREADS)
+    if c_side != want:
+        raise RuntimeError(f"csrc/bvh_wide.cu (kMaxLevels, kThreads) = "
+                           f"{c_side}, experiments/bvh_wide.py expects "
+                           f"{want}")
+    for m in range(1, MAX_LEVELS + 1):
+        if lib.bvh_wide_shared_bytes(m) != shared_bytes(m):
+            raise RuntimeError(f"csrc/bvh_wide.cu shared bytes for {m} "
+                               f"levels disagree with shared_bytes")
+    return lib
+
+
+def blocks_per_sm(device, n_levels: int, count_steps: bool = False,
+                  lib=None) -> int:
+    """Blocks of the wide kernel (or of ``lib``, a variant bound by
+    ``bind``) that fit on one SM of ``device`` for a tree of ``n_levels``
+    wide levels: the persistent grid's second factor."""
+    return _fit(lib or _library(), torch.device(device), n_levels,
+                count_steps)[1]
+
+
+def _fit(lib, dev, n_levels, count_steps):
+    key = (dev.index, lib._name, bool(count_steps), n_levels)
+    fit = traverse_ops._occupancy.get(key)
+    if fit is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = lib.bvh_wide_blocks_per_sm(int(count_steps), n_levels,
+                                            ctypes.addressof(out))
+            if rc != 0:
+                raise RuntimeError("bvh_wide occupancy query failed: "
+                                   + lib.bvh_wide_error_string(rc).decode())
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        fit = traverse_ops._occupancy[key] = (sms, out.value)
+    return fit
 
 
 # (data_ptr, version, tri rows) of leaf8 tables already checked.
@@ -170,7 +237,10 @@ def _check_tables(nodes8, leaf8, tris, depth, dev):
     return off, root_children(depth)
 
 
-def _launch(nodes8, leaf8, tris, ray_o, ray_d, depth, count_steps=False):
+def _launch(nodes8, leaf8, tris, ray_o, ray_d, depth, count_steps=False,
+            lib=None):
+    """The wide kernel, or ``lib`` (a variant bound by ``bind``: the lever
+    sweep's), on CUDA tensors."""
     dev = ray_o.device
     n = ray_o.shape[0]
     off, n_root = _check_tables(nodes8, leaf8, tris, depth, dev)
@@ -181,15 +251,18 @@ def _launch(nodes8, leaf8, tris, ray_o, ray_d, depth, count_steps=False):
     _check("ray_o", ray_o, torch.float32, (n, 3), dev)
     _check("ray_d", ray_d, torch.float32, (n, 3), dev)
     idx, t, counts = _outputs(n, dev, count_steps)
-    lib = _library()
+    work = traverse_ops.work_counter(dev)
+    lib = lib or _library()
     with torch.cuda.device(dev):
+        grid = traverse_ops.tile_grid(
+            n, *_fit(lib, dev, len(off), count_steps), WIDE)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bvh_wide(
             nodes8.data_ptr(), leaf8.data_ptr(), tris.data_ptr(),
             ray_o.data_ptr(), ray_d.data_ptr(), idx.data_ptr(), t.data_ptr(),
-            _ptr(counts), n,
+            _ptr(counts), work.data_ptr(), n,
             (ctypes.c_int * len(off))(*off), len(off), n_root,
-            int(count_steps), stream)
+            int(count_steps), grid, stream)
     if rc != 0:
         raise RuntimeError("bvh_wide launch failed: "
                            + lib.bvh_wide_error_string(rc).decode())
@@ -221,7 +294,7 @@ def traverse_wide_plain(nodes8, leaf8, tris, ray_o, ray_d, depth: int,
     best_idx = torch.full((n,), -1, dtype=torch.int64, device=dev)
     best_t = torch.full((n,), inf, device=dev)
     # Stack entries (k << 28) | i; entry 0 is the sentinel -1.
-    stack = torch.full((n, 7 * m + 4), -1, dtype=torch.int64, device=dev)
+    stack = torch.full((n, stack_rows(m)), -1, dtype=torch.int64, device=dev)
     sp = torch.ones((n,), dtype=torch.int64, device=dev)
     lev = torch.zeros((n,), dtype=torch.int64, device=dev)
     idx = torch.zeros((n,), dtype=torch.int64, device=dev)

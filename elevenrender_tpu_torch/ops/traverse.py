@@ -34,7 +34,10 @@ their children with the best_t of the step's start, then scans leaves and
 pushes in pop order; the same tables, the same t bit for bit, ids up to
 equal-t ties, closest-hit and any-hit, ``count_steps`` in the same four
 columns.  ``order``, ``leaf_aabb`` and ``leaf_mode`` do not apply to it
-and are ignored, as the TPU kernel ignores them.
+and are ignored, as the TPU kernel ignores them.  The kernel walks one
+ray per tile of ``frontier_tile(K)`` lanes, with the ray's stack in shared
+memory (``frontier_shared_bytes`` a block), on a persistent grid
+(``tile_grid``) fed by the same kind of work counter.
 
 Kernel tables (``pack_tables``, built by ``build_ir``/``ir_from_numpy``):
   boxes   f32 [NN, 12]: row p = both children of interior node p
@@ -69,6 +72,15 @@ THREADS = 128  # a block of the binary kernel (bvh_traverse_threads)
 RUN = 32       # rays a warp takes from the work counter at once
 FRONTIERS = range(2, 9)    # the frontier-K walk's K
 FRONTIER_MAX_DEPTH = 20    # csrc/bvh_frontier.cu kMaxDepth
+# The lane-tile kernels (csrc/bvh_frontier.cu, csrc/bvh_wide.cu): one ray
+# per tile of lanes, blocks of TILE_THREADS, a tile takes one ray at a time
+# from the work counter, and a block's stacks live in at most SHARED_LIMIT
+# bytes of shared memory (more needs an opt-in).
+TILE_THREADS = 128
+SHARED_LIMIT = 48 * 1024
+# The frontier kernel's scan scratch, per warp: a range table of 64
+# (start, shift) int32 pairs and one 8-byte key for each of up to 16 tiles.
+FRONTIER_SCRATCH = 2 * 64 * 4 + 16 * 8
 # The kernel indexes tris, boxes and rays with 32-bit ints as 3*i + k
 # (float4 rows; 3 floats per ray): the most rows of each it can address.
 MAX_ROWS = (2**31 - 1) // 3
@@ -119,6 +131,40 @@ def frontier_stack_rows(frontier: int, depth: int) -> int:
     """Capacity of the frontier walk's per-ray stack, the TPU kernel's
     allocation; a push needs ``sp < rows - 1``."""
     return 4 * frontier * depth + 8
+
+
+def frontier_tile(frontier: int) -> int:
+    """Lanes of the tile that walks one ray of the frontier-K kernel: K
+    rounded up to a power of two (2, 4, 4, 8, 8, 8, 8 for K = 2..8)."""
+    if frontier not in FRONTIERS:
+        raise ValueError(f"frontier {frontier!r}: expected 2..{FRONTIERS[-1]}")
+    return 2 if frontier <= 2 else 4 if frontier <= 4 else 8
+
+
+def frontier_shared_bytes(frontier: int, depth: int) -> int:
+    """Dynamic shared memory of one block of the frontier-K kernel: each
+    warp's ``FRONTIER_SCRATCH``, then one stack of ``frontier_stack_rows``
+    int32 for each of its tiles.  Raises where a block would not fit in
+    ``SHARED_LIMIT``."""
+    tiles = TILE_THREADS // frontier_tile(frontier)
+    nbytes = (TILE_THREADS // 32 * FRONTIER_SCRATCH
+              + tiles * frontier_stack_rows(frontier, depth) * 4)
+    if nbytes > SHARED_LIMIT:
+        raise ValueError(f"frontier {frontier} at depth {depth}: {nbytes} "
+                         f"bytes a block, over {SHARED_LIMIT}")
+    return nbytes
+
+
+def tile_grid(n: int, sm_count: int, blocks_per_sm: int, tile: int) -> int:
+    """Blocks of a lane-tile kernel's persistent grid for ``n`` rays: every
+    block that fits on the card at once, but no more than the rays fill
+    (a tile takes one ray at a time, a block holds ``TILE_THREADS //
+    tile`` tiles)."""
+    if sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError(f"{sm_count} SMs x {blocks_per_sm} blocks: the "
+                         f"kernel does not fit on the card")
+    return max(1, min(sm_count * blocks_per_sm,
+                      -(-n // (TILE_THREADS // tile))))
 
 
 def pack_tables(node_bmin, node_bmax, node_from, node_to, verts_sorted,
@@ -509,24 +555,76 @@ def _frontier_library():
     global _frontier_lib
     if _frontier_lib is None:
         from .. import kernels
-        lib = kernels.load("bvh_frontier")
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.bvh_frontier.argtypes = [p] * 11 + [i] * 5 + [p]
-        lib.bvh_frontier.restype = ctypes.c_int
-        lib.bvh_frontier_max_depth.argtypes = []
-        lib.bvh_frontier_max_depth.restype = ctypes.c_int
-        lib.bvh_frontier_error_string.argtypes = [ctypes.c_int]
-        lib.bvh_frontier_error_string.restype = ctypes.c_char_p
-        if lib.bvh_frontier_max_depth() != FRONTIER_MAX_DEPTH:
-            raise RuntimeError("csrc/bvh_frontier.cu kMaxDepth and "
-                               "FRONTIER_MAX_DEPTH disagree")
-        _frontier_lib = lib
+        _frontier_lib = bind_frontier(kernels.load("bvh_frontier"))
     return _frontier_lib
 
 
+def bind_frontier(lib):
+    """``lib`` (a build of csrc/bvh_frontier.cu, or of a variant of it that
+    keeps its C interface) with its entry points typed and its sizing
+    checked against this module's."""
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.bvh_frontier.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.bvh_frontier.restype = ctypes.c_int
+    lib.bvh_frontier_blocks_per_sm.argtypes = [i] * 3 + [p]
+    lib.bvh_frontier_blocks_per_sm.restype = ctypes.c_int
+    lib.bvh_frontier_error_string.argtypes = [ctypes.c_int]
+    lib.bvh_frontier_error_string.restype = ctypes.c_char_p
+    for name in ("max_depth", "threads"):
+        getattr(lib, f"bvh_frontier_{name}").restype = ctypes.c_int
+    lib.bvh_frontier_tile_width.argtypes = [i]
+    lib.bvh_frontier_tile_width.restype = ctypes.c_int
+    lib.bvh_frontier_shared_bytes.argtypes = [i, i]
+    lib.bvh_frontier_shared_bytes.restype = ctypes.c_int
+    c_side = (lib.bvh_frontier_max_depth(), lib.bvh_frontier_threads())
+    if c_side != (FRONTIER_MAX_DEPTH, TILE_THREADS):
+        raise RuntimeError(f"csrc/bvh_frontier.cu (kMaxDepth, kThreads) "
+                           f"= {c_side}, ops/traverse.py expects "
+                           f"{(FRONTIER_MAX_DEPTH, TILE_THREADS)}")
+    for k in FRONTIERS:
+        if lib.bvh_frontier_tile_width(k) != frontier_tile(k):
+            raise RuntimeError(f"csrc/bvh_frontier.cu tile width for K={k} "
+                               f"disagrees with frontier_tile")
+        for dep in range(1, FRONTIER_MAX_DEPTH + 1):
+            if (lib.bvh_frontier_shared_bytes(k, dep)
+                    != frontier_shared_bytes(k, dep)):
+                raise RuntimeError(
+                    f"csrc/bvh_frontier.cu shared bytes for K={k}, depth "
+                    f"{dep} disagree with frontier_shared_bytes")
+    return lib
+
+
+def frontier_blocks_per_sm(device, frontier: int, depth: int,
+                           count_steps: bool = False, lib=None) -> int:
+    """Blocks of the frontier-K kernel (or of ``lib``, a variant bound by
+    ``bind_frontier``) that fit on one SM of ``device`` at ``depth``: the
+    persistent grid's second factor."""
+    return _frontier_fit(lib or _frontier_library(), torch.device(device),
+                         frontier, depth, count_steps)[1]
+
+
+def _frontier_fit(lib, dev, frontier, depth, count_steps):
+    key = (dev.index, lib._name, frontier, bool(count_steps), depth)
+    fit = _occupancy.get(key)
+    if fit is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = lib.bvh_frontier_blocks_per_sm(frontier, int(count_steps),
+                                                depth, ctypes.addressof(out))
+            if rc != 0:
+                raise RuntimeError(
+                    "bvh_frontier occupancy query failed: "
+                    + lib.bvh_frontier_error_string(rc).decode())
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        fit = _occupancy[key] = (sms, out.value)
+    return fit
+
+
 def _launch_frontier(tables, ray_o, ray_d, depth, frontier, exclude, t_max,
-                     count_steps=False):
+                     count_steps=False, lib=None):
+    """The frontier-K kernel, or ``lib`` (a variant bound by
+    ``bind_frontier``: the lever sweep's), on CUDA tensors."""
     global frontier_launches
     check_frontier(frontier, depth)
     dev = ray_o.device
@@ -535,14 +633,19 @@ def _launch_frontier(tables, ray_o, ray_d, depth, frontier, exclude, t_max,
     idx, t, counts = _outputs(n, dev, count_steps)
     stats = (torch.zeros((2,), dtype=torch.int32, device=dev)
              if count_steps else None)
-    lib = _frontier_library()
+    work = work_counter(dev)
+    lib = lib or _frontier_library()
     with torch.cuda.device(dev):
+        grid = tile_grid(n, *_frontier_fit(lib, dev, frontier, depth,
+                                           count_steps),
+                         frontier_tile(frontier))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bvh_frontier(
             _ptr(tables["boxes"]), _ptr(tables["leaves"]),
             _ptr(tables["tris"]), _ptr(ray_o), _ptr(ray_d), _ptr(exclude),
-            _ptr(t_max), _ptr(idx), _ptr(t), _ptr(counts), _ptr(stats), n,
-            depth, frontier, int(any_hit), int(count_steps), stream)
+            _ptr(t_max), _ptr(idx), _ptr(t), _ptr(counts), _ptr(stats),
+            _ptr(work), n, depth, frontier, int(any_hit), int(count_steps),
+            grid, stream)
     if rc != 0:
         raise RuntimeError("bvh_frontier launch failed: "
                            + lib.bvh_frontier_error_string(rc).decode())

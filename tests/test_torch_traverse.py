@@ -48,6 +48,7 @@ from elevenrender_tpu.ops.bvh import brute_force as jax_brute_force
 from elevenrender_tpu.ops.bvh import build_bvh as jax_build_bvh
 from elevenrender_tpu.ops.bvh_pallas import (pack_bvh_for_pallas,
                                              traverse_pallas)
+from elevenrender_tpu_torch import sweep_levers
 from elevenrender_tpu_torch import sweep_traverse as sweep
 from elevenrender_tpu_torch.convert import ir_from_numpy
 from elevenrender_tpu_torch.ops import traverse as tt
@@ -620,6 +621,82 @@ def test_work_counter_and_stack_bytes():
     assert w.device.type == "cpu"
     nodes = (1 << (tt.MAX_DEPTH + 1)) - 1
     assert (nodes - 1) << 5 | tt.MAX_DEPTH < 2**31
+
+
+@pytest.mark.parametrize("frontier,tile", [(2, 2), (3, 4), (4, 4), (5, 8),
+                                           (6, 8), (7, 8), (8, 8)])
+def test_frontier_tile_width(frontier, tile):
+    """The frontier-K kernel walks a ray on K lanes rounded up to a power
+    of two, so a warp holds whole tiles."""
+    assert tt.frontier_tile(frontier) == tile
+    assert 32 % tile == 0 and tile >= frontier
+
+
+@pytest.mark.parametrize("bad", [1, 9])
+def test_frontier_tile_width_refuses_other_frontiers(bad):
+    with pytest.raises(ValueError, match="frontier"):
+        tt.frontier_tile(bad)
+
+
+@pytest.mark.parametrize("frontier,depth,nbytes", [
+    (2, 20, 4 * 640 + 64 * 168 * 4),   # the largest block: 45,568 B
+    (3, 11, 4 * 640 + 32 * 140 * 4),
+    (4, 11, 4 * 640 + 32 * 184 * 4),   # the main scene's depth
+    (4, 15, 4 * 640 + 32 * 248 * 4),   # config 5's depth
+    (8, 20, 4 * 640 + 16 * 648 * 4),
+    (5, 1, 4 * 640 + 16 * 28 * 4)])
+def test_frontier_shared_bytes(frontier, depth, nbytes):
+    """A block's shared memory: four warps' scan scratch (a range table of
+    64 int32 pairs and 16 keys of 8 bytes), then a stack of 4 K depth + 8
+    int32 for each of its 128 / tile tiles."""
+    assert tt.FRONTIER_SCRATCH == 640
+    assert tt.frontier_shared_bytes(frontier, depth) == nbytes
+
+
+def test_frontier_shared_bytes_fit_every_depth_the_wrapper_admits():
+    """Every (K, depth) the wrapper admits fits a block in the 48 KB that
+    needs no opt-in; the first depth past the limit at K = 2 would not,
+    and is refused."""
+    for k in tt.FRONTIERS:
+        for depth in range(1, tt.FRONTIER_MAX_DEPTH + 1):
+            assert tt.frontier_shared_bytes(k, depth) <= tt.SHARED_LIMIT
+    assert tt.frontier_shared_bytes(2, 21) <= tt.SHARED_LIMIT
+    with pytest.raises(ValueError, match="bytes a block"):
+        tt.frontier_shared_bytes(2, 22)
+
+
+@pytest.mark.parametrize("n,sms,blocks,tile,grid", [
+    (1 << 20, 132, 7, 4, 132 * 7),   # a full launch: every block that fits
+    (1 << 20, 132, 8, 8, 132 * 8),
+    (65535, 132, 8, 2, 1024),         # 64 tiles a block, under 132 x 8
+    (33, 132, 8, 8, 3),               # 16 tiles a block
+    (32 * 5, 132, 7, 4, 5),           # 32 tiles a block
+    (32 * 5 + 1, 132, 7, 4, 6),
+    (1, 132, 7, 4, 1),
+    (0, 132, 7, 4, 1)])
+def test_frontier_and_wide_tile_grid_shape(n, sms, blocks, tile, grid):
+    """The lane-tile kernels' persistent grid: every block that fits on the
+    card, but no more than the rays fill at one ray a tile."""
+    assert tt.tile_grid(n, sms, blocks, tile) == grid
+    assert tt.TILE_THREADS == 128
+
+
+def test_frontier_and_wide_tile_grid_refuses_a_kernel_that_does_not_fit():
+    with pytest.raises(ValueError, match="fit"):
+        tt.tile_grid(1024, 132, 0, 4)
+
+
+@pytest.mark.parametrize("lever", sorted(sweep_levers.LEVERS))
+def test_frontier_and_wide_levers_apply_to_the_sources(lever):
+    """Each lever of the lever sweep is its source as it stands with its
+    substitutions, each pattern found exactly once, so the sweep times a
+    variant of today's kernel (it builds and runs only on a card)."""
+    source, subs = sweep_levers.LEVERS[lever]
+    text = sweep_levers.variant_source(lever)
+    assert text != (sweep_levers.kernels.CSRC / f"{source}.cu").read_text()
+    for _, new in subs:
+        assert new in text
+    assert sweep_levers.library_name(lever).isidentifier()
 
 
 @pytest.mark.parametrize("depth", [0, tt.MAX_DEPTH + 1])

@@ -213,6 +213,27 @@ def test_wrapper_refuses_what_it_cannot_serve(case):
         tw._launch(w["nodes8"], w["leaf8"], tris, o, d, 25)
 
 
+@pytest.mark.parametrize("levels,nbytes", [
+    (1, 4 * 288 + 16 * 11 * 4), (4, 4 * 288 + 16 * 32 * 4),
+    (5, 4 * 288 + 16 * 39 * 4), (8, 4 * 288 + 16 * 60 * 4)])
+def test_wide_stack_and_shared_bytes(levels, nbytes):
+    """The wide kernel's block: four warps' scan scratch (32 int32 pairs
+    and 4 keys of 8 bytes), then a stack of 7 per wide level + 4 int32 for
+    each of its 16 tiles of 8 lanes; the plain walk's stack has the same
+    rows.  Depth 11 (the main scene) has 4 wide levels, depth 15 (config
+    5) 5."""
+    assert tw.stack_rows(levels) == 7 * levels + 4
+    assert tw.SCRATCH == 288
+    assert tw.shared_bytes(levels) == nbytes
+    assert len(tw.level_offsets(11)) == 4 and len(tw.level_offsets(15)) == 5
+
+
+@pytest.mark.parametrize("bad", [0, tw.MAX_LEVELS + 1])
+def test_wide_shared_bytes_refuses_other_level_counts(bad):
+    with pytest.raises(ValueError, match="wide levels"):
+        tw.shared_bytes(bad)
+
+
 def test_convert_carries_the_wide_tables():
     _, config, ir = heightfield_scene(grid=12, res=16, compat=False)
     fields = dataclasses.asdict(config)
