@@ -1320,10 +1320,12 @@ def main():
         return out
 
     def check_new_walks_ragged(label, walk, rnd):
-        """The lane-tile kernels' persistent hand-out (a tile takes runs of
-        4 rays) at the ray counts of phase 3's ragged checks: the first n
-        random rays, every K closest-hit and any-hit and the wide walk,
-        with count_steps; as same_as_plain."""
+        """The lane-tile kernels' persistent hand-out (a tile takes one ray
+        at a time from the work counter) at the ray counts of phase 3's
+        ragged checks: the first n random rays, every K closest-hit and
+        any-hit and the wide walk, with count_steps; as same_as_plain.  The
+        counts check that the last rays are handed out and that the tiles
+        which find nothing left exit together."""
         o, d, closest, t_max = rnd
         checked = 0
         for n_ in RAGGED:

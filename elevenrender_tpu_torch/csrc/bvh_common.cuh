@@ -2,7 +2,8 @@
 // triangle scan.  bvh_traverse.cu (the binary walk), bvh_frontier.cu (the
 // frontier-K walk) and bvh_wide.cu (the 8-wide collapsed BVH) include it,
 // so the three do the same float operations in the same order and their
-// distances are equal bit for bit.  Every source that includes it is
+// distances are equal bit for bit.  The last part, the pooled leaf scan
+// and the ray hand-out of a lane-tile kernel, serves the last two.  Every source that includes it is
 // compiled with --fmad=false: each float op is rounded on its own, as in
 // the plain PyTorch versions (ops/traverse.py, experiments/bvh_wide.py).
 
@@ -110,6 +111,107 @@ __device__ __forceinline__ bool test_tris(const float4* __restrict__ tris,
 // 8-aligned slot groups that the leaf range [from, to) touches.
 __device__ __forceinline__ int groups_of_8(int from, int to) {
   return to > from ? ((to - 1) >> 3) - (from >> 3) + 1 : 0;
+}
+
+// ---- The lane-tile kernels (bvh_frontier.cu, bvh_wide.cu) --------------
+// One ray per tile of G lanes, and a warp's tiles step together.  At each
+// step the tiles' leaf ranges, tile by tile in the kernel's order, are one
+// list of the warp, scanned in rounds of 32 positions: one
+// Moller-Trumbore test a lane, with the ray and best_t of the tile that
+// owns the position.  An accepted test lowers that tile's key by a
+// shared-memory atomicMin, and the least key is what the one-by-one scan
+// of the tile's own list keeps: closest-hit keys on (t, position), any-hit
+// on the position alone.
+
+constexpr unsigned kAllLanes = 0xffffffffu;
+constexpr unsigned long long kNoKey = ~0ull;  // no accepted test
+
+// Closest-hit order of an accepted test: t (>= 0, so its bits order as
+// the floats do; -0 as +0), then the position.
+__device__ __forceinline__ unsigned long long order_key(float t, int p) {
+  const unsigned u = t == 0.0f ? 0u : __float_as_uint(t);
+  return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(p);
+}
+
+// v summed over lanes 0..(this lane) of the warp.
+__device__ __forceinline__ int warp_inclusive_sum(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const int u = __shfl_up_sync(kAllLanes, v, s);
+    if (lane >= s) v += u;
+  }
+  return v;
+}
+
+// The next ray from the work counter, taken by the tile's lane 0 and seen
+// by all of its lanes.
+template <typename Tile>
+__device__ __forceinline__ int take_ray(const Tile& tile,
+                                        int* __restrict__ next_ray) {
+  int taken = 0;
+  if (tile.thread_rank() == 0) taken = atomicAdd(next_ray, 1);
+  return tile.shfl(taken, 0);
+}
+
+// One warp's scan scratch: a step's range table (kRanges ranges, kRanges
+// / 32 a lane: range d belongs to lane d / (kRanges / 32)) and each of its
+// kTiles tiles' key.
+template <int kRanges, int kTiles>
+struct ScanScratch {
+  int start[kRanges];  // the range's first position in the warp's list
+  int shift[kRanges];  // its first slot minus that position
+  unsigned long long key[kTiles];
+
+  // The range that holds position p: the last d with start[d] <= p (start
+  // is non-decreasing, start[0] = 0; an empty range shares its start with
+  // the next one, so the last is never empty).
+  __device__ __forceinline__ int find(int p) const {
+    int d = 0;
+#pragma unroll
+    for (int s = kRanges / 2; s > 0; s >>= 1) d = start[d + s] <= p ? d + s : d;
+    return d;
+  }
+};
+
+// The rounds of a step's pooled scan over `pooled` positions, for tiles of
+// G lanes; each lane passes its tile's ray, best_t (of the step's start)
+// and, for any-hit, exclude.  The best_t of the step's start admits what
+// the one-by-one scan would accept and more, never less.  An any-hit tile
+// resolved at an earlier position scans no more.
+template <int G, int kRanges, int kTiles>
+__device__ __forceinline__ void pooled_scan(
+    ScanScratch<kRanges, kTiles>* s, int pooled,
+    const float4* __restrict__ tris, const Ray& r, float best_t,
+    bool any_hit, int excl) {
+  static_assert(kRanges % 32 == 0 && kTiles * G >= 32, "a warp's table");
+  const int wl = threadIdx.x & 31;
+  for (int base = 0; base < pooled; base += 32) {
+    const int p = base + wl;
+    const int d = p < pooled ? s->find(p) : 0;
+    const int src = p < pooled ? (d / (kRanges / 32)) & ~(G - 1) : wl;
+    Ray q;
+    q.ox = __shfl_sync(kAllLanes, r.ox, src);
+    q.oy = __shfl_sync(kAllLanes, r.oy, src);
+    q.oz = __shfl_sync(kAllLanes, r.oz, src);
+    q.dx = __shfl_sync(kAllLanes, r.dx, src);
+    q.dy = __shfl_sync(kAllLanes, r.dy, src);
+    q.dz = __shfl_sync(kAllLanes, r.dz, src);
+    const float q_best = __shfl_sync(kAllLanes, best_t, src);
+    const int q_excl = any_hit ? __shfl_sync(kAllLanes, excl, src) : -1;
+    if (p < pooled) {
+      unsigned long long* const key = &s->key[src / G];
+      if (!any_hit || *key > static_cast<unsigned long long>(p)) {
+        const int slot = p + s->shift[d];
+        float t;
+        if (moller_trumbore(tris, slot, q, t) && t < q_best &&
+            (!any_hit || slot != q_excl))
+          atomicMin(key, any_hit ? static_cast<unsigned long long>(p)
+                                 : order_key(t, p));
+      }
+    }
+    __syncwarp();
+  }
 }
 
 }  // namespace bvh

@@ -86,15 +86,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using namespace bvh;  // Ray, slab, moller_trumbore, groups_of_8
+using namespace bvh;  // Ray, slab, groups_of_8, the pooled scan
 
 constexpr int kMaxDepth = 20;
 constexpr int kDepthBits = 5;
 constexpr int kThreads = 128;
 constexpr int kSharedLimit = 48 * 1024;
 constexpr int kRanges = 64;  // two leaf ranges a lane of a warp
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kNoKey = ~0ull;  // no accepted test
 
 // The lanes of a ray's tile.
 __host__ __device__ constexpr int tile_width(int k) {
@@ -143,31 +141,10 @@ struct Stack {
 };
 
 // One warp's scan scratch: the range table of a step (two ranges a lane,
-// right then left: entry of range d at lane d >> 1) and each tile's best
-// key of the step.
-struct Scratch {
-  int start[kRanges];  // the range's first position in the warp's list
-  int shift[kRanges];  // its first slot minus that position
-  unsigned long long key[32 / 2];
-};
+// right then left: range d at lane d >> 1) and the key of each of up to
+// 16 tiles.
+using Scratch = ScanScratch<kRanges, 32 / 2>;
 static_assert(sizeof(Scratch) == kScratchBytes, "scan scratch layout");
-
-// The range of the warp's list that holds position p: the last d with
-// start[d] <= p (start is non-decreasing, start[0] = 0; an empty range
-// shares its start with the next one, so the last is never empty).
-__device__ __forceinline__ int find(const int* start, int p) {
-  int d = 0;
-#pragma unroll
-  for (int s = kRanges / 2; s > 0; s >>= 1) d = start[d + s] <= p ? d + s : d;
-  return d;
-}
-
-// Closest-hit order of an accepted test: t (>= 0, so its bits order as
-// the floats do; -0 as +0), then the position.
-__device__ __forceinline__ unsigned long long order_key(float t, int p) {
-  const unsigned u = t == 0.0f ? 0u : __float_as_uint(t);
-  return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(p);
-}
 
 template <int K, bool kCount>
 __global__ void __launch_bounds__(kThreads)
@@ -201,9 +178,7 @@ bvh_frontier_walk(Tables tb, Rays io, int* __restrict__ next_ray,
   for (;;) {
     // A tile without a ray takes the next one from the work counter.
     if (ray < 0 && !drained) {
-      int taken = 0;
-      if (lane == 0) taken = atomicAdd(next_ray, 1);
-      taken = tile.shfl(taken, 0);
+      const int taken = take_ray(tile, next_ray);
       drained = taken >= n;
       if (!drained) {
         ray = taken;
@@ -217,7 +192,7 @@ bvh_frontier_walk(Tables tb, Rays io, int* __restrict__ next_ray,
         deepest_all = deepest_all > 1 ? deepest_all : 1;
       }
     }
-    if (!__any_sync(kFull, ray >= 0)) break;
+    if (!__any_sync(kAllLanes, ray >= 0)) break;
     __syncwarp();  // a new root is written before it is popped
     // Phase 1: lane j < k pops entry j and tests its two children with
     // the best_t of the step's start.
@@ -247,54 +222,21 @@ bvh_frontier_walk(Tables tb, Rays io, int* __restrict__ next_ray,
     if (scans) lf = __ldg(&tb.leaves[node]);  // (l_from, l_to, r_from, r_to)
     const int a_len = scans && r_over ? lf.w - lf.z : 0;
     const int list = a_len + (scans && l_over ? lf.y - lf.x : 0);
-    int incl = list;
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, s);
-      if (wl >= s) incl += v;
-    }
-    const int pooled = __shfl_sync(kFull, incl, 31);
+    const int incl = warp_inclusive_sum(list);
+    const int pooled = __shfl_sync(kAllLanes, incl, 31);
     const int first = incl - list;
-    const int tile_first = __shfl_sync(kFull, first, leader);
-    const int tile_list = __shfl_sync(kFull, incl, leader + G - 1) - tile_first;
+    const int tile_first = __shfl_sync(kAllLanes, first, leader);
+    const int tile_list =
+        __shfl_sync(kAllLanes, incl, leader + G - 1) - tile_first;
     scratch->start[2 * wl] = first;
     scratch->start[2 * wl + 1] = first + a_len;
     scratch->shift[2 * wl] = lf.z - first;
     scratch->shift[2 * wl + 1] = lf.x - (first + a_len);
     if (lane == 0) scratch->key[tw] = kNoKey;
     __syncwarp();  // the pops are read and the range table is written
-    // Rounds of 32 positions, one Moller-Trumbore test a lane with the
-    // ray, best_t and exclude of the tile that owns the position; an
-    // accepted test lowers that tile's key.  The best_t of the step's
-    // start admits what the one-by-one scan would accept and more, never
-    // less; the least key is the one-by-one scan's result.
-    for (int base = 0; base < pooled; base += 32) {
-      const int p = base + wl;
-      const int d = p < pooled ? find(scratch->start, p) : 0;
-      const int src = p < pooled ? (d >> 1) & ~(G - 1) : wl;
-      Ray q;
-      q.ox = __shfl_sync(kFull, r.ox, src);
-      q.oy = __shfl_sync(kFull, r.oy, src);
-      q.oz = __shfl_sync(kFull, r.oz, src);
-      q.dx = __shfl_sync(kFull, r.dx, src);
-      q.dy = __shfl_sync(kFull, r.dy, src);
-      q.dz = __shfl_sync(kFull, r.dz, src);
-      const float q_best = __shfl_sync(kFull, best_t, src);
-      const int q_excl = __shfl_sync(kFull, excl, src);
-      if (p < pooled) {
-        unsigned long long* const key = &scratch->key[src / G];
-        // An any-hit tile resolved at an earlier position scans no more.
-        if (!any_hit || *key > static_cast<unsigned long long>(p)) {
-          const int slot = p + scratch->shift[d];
-          float tt;
-          if (moller_trumbore(tb.tris, slot, q, tt) && tt < q_best &&
-              (!any_hit || slot != q_excl))
-            atomicMin(key, any_hit ? static_cast<unsigned long long>(p)
-                                   : order_key(tt, p));
-        }
-      }
-      __syncwarp();
-    }
+    // The pooled scan (bvh_common.cuh): the least key of each tile is the
+    // one-by-one scan's result.
+    pooled_scan<G>(scratch, pooled, tb.tris, r, best_t, any_hit != 0, excl);
     // The tile's result: its least key, if any.
     const unsigned long long key = scratch->key[tw];
     bool resolved = false;
@@ -303,7 +245,7 @@ bvh_frontier_walk(Tables tb, Rays io, int* __restrict__ next_ray,
     bool in_right = false;
     if (key != kNoKey) {
       const int p = static_cast<int>(key & 0xffffffffu);
-      const int d = find(scratch->start, p);
+      const int d = scratch->find(p);
       best_idx = p + scratch->shift[d];
       if (any_hit) {
         best_t = -CUDART_INF_F;

@@ -72,14 +72,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using namespace bvh;  // Ray, slab, moller_trumbore, groups_of_8
+using namespace bvh;  // Ray, slab, moller_trumbore, groups_of_8, the
+                      // pooled scan
 
 constexpr int kMaxLevels = 8;  // depth <= 24
 constexpr int kIndexBits = 28;
 constexpr int kThreads = 128;
 constexpr int kWide = 8;   // lanes of a ray's tile: one a child
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kNoKey = ~0ull;  // no accepted test
 
 __host__ __device__ constexpr int stack_rows(int n_levels) {
   return 7 * n_levels + 4;
@@ -119,29 +118,9 @@ struct Rays {
 };
 
 // One warp's scan scratch: the range table of a step (lane e of tile w
-// holds child e's range, entry 8 w + e) and each tile's best key.
-struct Scratch {
-  int start[32];  // the range's first position in the warp's list
-  int shift[32];  // its first slot minus that position
-  unsigned long long key[32 / kWide];
-};
+// holds child e's range, range 8 w + e) and each tile's key.
+using Scratch = ScanScratch<32, 32 / kWide>;
 static_assert(sizeof(Scratch) == kScratchBytes, "scan scratch layout");
-
-// The range of the warp's list that holds position p: the last d with
-// start[d] <= p (an empty range shares its start with the next one).
-__device__ __forceinline__ int find(const int* start, int p) {
-  int d = 0;
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) d = start[d + s] <= p ? d + s : d;
-  return d;
-}
-
-// The order of an accepted test: t (>= 0, so its bits order as the floats
-// do; -0 as +0), then the position.
-__device__ __forceinline__ unsigned long long order_key(float t, int p) {
-  const unsigned u = t == 0.0f ? 0u : __float_as_uint(t);
-  return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(p);
-}
 
 template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
@@ -172,9 +151,7 @@ bvh_wide_walk(const float4* __restrict__ nodes8,
   for (;;) {
     // A tile without a ray takes the next one from the work counter.
     if (ray < 0 && !drained) {
-      int taken = 0;
-      if (e == 0) taken = atomicAdd(next_ray, 1);
-      taken = tile.shfl(taken, 0);
+      const int taken = take_ray(tile, next_ray);
       drained = taken >= n;
       if (!drained) {
         ray = taken;
@@ -188,7 +165,7 @@ bvh_wide_walk(const float4* __restrict__ nodes8,
         i = 0;
       }
     }
-    if (!__any_sync(kFull, ray >= 0)) break;
+    if (!__any_sync(kAllLanes, ray >= 0)) break;
     __syncwarp();  // a new sentinel is written before it is popped
     // The visit: lane e tests child e of node (k, i).
     const bool active = ray >= 0;
@@ -230,53 +207,27 @@ bvh_wide_walk(const float4* __restrict__ nodes8,
       i = child_base + e_star;
     }
     // The last level: the passing children's ranges, e = 0..7, tile by
-    // tile, are one list of the warp, scanned in rounds of 32 positions
-    // with the ray and best_t of the tile that owns the position; an
-    // accepted test lowers that tile's key.  The least key is what the
-    // one-by-one scan keeps (the visit's best_t admits all it would
-    // accept, and more).
+    // tile, are one list of the warp for the pooled scan (bvh_common.cuh).
+    // Each tile's least key is what the one-by-one scan keeps (the visit's
+    // best_t admits all it would accept, and more).
     int2 lf = make_int2(0, 0);
     if (scan && hit) lf = __ldg(&leaf8[kWide * i + e]);  // [from, to)
     const int len = lf.y - lf.x;
-    int incl = len;
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, s);
-      if (wl >= s) incl += v;
-    }
-    const int pooled = __shfl_sync(kFull, incl, 31);
+    const int incl = warp_inclusive_sum(len);
+    const int pooled = __shfl_sync(kAllLanes, incl, 31);
     const int first = incl - len;
     const int tile_list =
-        __shfl_sync(kFull, incl, leader + kWide - 1) -
-        __shfl_sync(kFull, first, leader);
+        __shfl_sync(kAllLanes, incl, leader + kWide - 1) -
+        __shfl_sync(kAllLanes, first, leader);
     scratch->start[wl] = first;
     scratch->shift[wl] = lf.x - first;
     if (e == 0) scratch->key[tw] = kNoKey;
     __syncwarp();
-    for (int base = 0; base < pooled; base += 32) {
-      const int p = base + wl;
-      const int d = p < pooled ? find(scratch->start, p) : 0;
-      const int src = p < pooled ? d & ~(kWide - 1) : wl;
-      Ray q;
-      q.ox = __shfl_sync(kFull, r.ox, src);
-      q.oy = __shfl_sync(kFull, r.oy, src);
-      q.oz = __shfl_sync(kFull, r.oz, src);
-      q.dx = __shfl_sync(kFull, r.dx, src);
-      q.dy = __shfl_sync(kFull, r.dy, src);
-      q.dz = __shfl_sync(kFull, r.dz, src);
-      const float q_best = __shfl_sync(kFull, best_t, src);
-      if (p < pooled) {
-        const int slot = p + scratch->shift[d];
-        float tt;
-        if (moller_trumbore(tris, slot, q, tt) && tt < q_best)
-          atomicMin(&scratch->key[src / kWide], order_key(tt, p));
-      }
-      __syncwarp();
-    }
+    pooled_scan<kWide>(scratch, pooled, tris, r, best_t, false, -1);
     const unsigned long long key = scratch->key[tw];
     if (key != kNoKey) {
       const int p = static_cast<int>(key & 0xffffffffu);
-      best_idx = p + scratch->shift[find(scratch->start, p)];
+      best_idx = p + scratch->shift[scratch->find(p)];
       moller_trumbore(tris, best_idx, r, best_t);  // its t, bit for bit
     }
     if constexpr (kCount) {

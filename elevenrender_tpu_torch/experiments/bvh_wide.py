@@ -38,8 +38,8 @@ import torch
 
 from ..ops import traverse as traverse_ops
 from ..ops.bvh import preorder_indices
-from ..ops.traverse import (_check, _groups_of_8, _leaf_scan, _outputs,
-                            _ptr, _slab)
+from ..ops.traverse import (_check, _fit, _groups_of_8, _leaf_scan,
+                            _outputs, _ptr, _slab)
 
 WIDE = 8         # also the lanes of the tile that walks one ray
 MAX_LEVELS = 8   # csrc/bvh_wide.cu kMaxLevels: depth <= 24
@@ -88,7 +88,7 @@ def shared_bytes(n_levels: int) -> int:
     if not 1 <= n_levels <= MAX_LEVELS:
         raise ValueError(f"{n_levels} wide levels: the kernel serves 1.."
                          f"{MAX_LEVELS}")
-    threads = traverse_ops.TILE_THREADS
+    threads = traverse_ops.THREADS
     return threads // 32 * SCRATCH + threads // WIDE * stack_rows(n_levels) * 4
 
 
@@ -151,63 +151,40 @@ def _library():
     global _lib
     if _lib is None:
         from .. import kernels
-        _lib = bind(kernels.load("bvh_wide"))
+        lib = kernels.load("bvh_wide")
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.bvh_wide.argtypes = ([p] * 9 + [i, ctypes.POINTER(ctypes.c_int)]
+                                 + [i] * 4 + [p])
+        lib.bvh_wide.restype = ctypes.c_int
+        lib.bvh_wide_blocks_per_sm.argtypes = [i, i, p]
+        lib.bvh_wide_blocks_per_sm.restype = ctypes.c_int
+        lib.bvh_wide_shared_bytes.argtypes = [i]
+        lib.bvh_wide_shared_bytes.restype = ctypes.c_int
+        lib.bvh_wide_error_string.argtypes = [ctypes.c_int]
+        lib.bvh_wide_error_string.restype = ctypes.c_char_p
+        for name in ("max_levels", "threads"):
+            getattr(lib, f"bvh_wide_{name}").restype = ctypes.c_int
+        c_side = (lib.bvh_wide_max_levels(), lib.bvh_wide_threads())
+        want = (MAX_LEVELS, traverse_ops.THREADS)
+        if c_side != want:
+            raise RuntimeError(f"csrc/bvh_wide.cu (kMaxLevels, kThreads) = "
+                               f"{c_side}, experiments/bvh_wide.py expects "
+                               f"{want}")
+        for m in range(1, MAX_LEVELS + 1):
+            if lib.bvh_wide_shared_bytes(m) != shared_bytes(m):
+                raise RuntimeError(f"csrc/bvh_wide.cu shared bytes for {m} "
+                                   f"levels disagree with shared_bytes")
+        _lib = lib
     return _lib
 
 
-def bind(lib):
-    """``lib`` (a build of csrc/bvh_wide.cu, or of a variant of it that
-    keeps its C interface) with its entry points typed and its sizing
-    checked against this module's."""
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    lib.bvh_wide.argtypes = ([p] * 9 + [i, ctypes.POINTER(ctypes.c_int)]
-                             + [i] * 4 + [p])
-    lib.bvh_wide.restype = ctypes.c_int
-    lib.bvh_wide_blocks_per_sm.argtypes = [i, i, p]
-    lib.bvh_wide_blocks_per_sm.restype = ctypes.c_int
-    lib.bvh_wide_shared_bytes.argtypes = [i]
-    lib.bvh_wide_shared_bytes.restype = ctypes.c_int
-    lib.bvh_wide_error_string.argtypes = [ctypes.c_int]
-    lib.bvh_wide_error_string.restype = ctypes.c_char_p
-    for name in ("max_levels", "threads"):
-        getattr(lib, f"bvh_wide_{name}").restype = ctypes.c_int
-    c_side = (lib.bvh_wide_max_levels(), lib.bvh_wide_threads())
-    want = (MAX_LEVELS, traverse_ops.TILE_THREADS)
-    if c_side != want:
-        raise RuntimeError(f"csrc/bvh_wide.cu (kMaxLevels, kThreads) = "
-                           f"{c_side}, experiments/bvh_wide.py expects "
-                           f"{want}")
-    for m in range(1, MAX_LEVELS + 1):
-        if lib.bvh_wide_shared_bytes(m) != shared_bytes(m):
-            raise RuntimeError(f"csrc/bvh_wide.cu shared bytes for {m} "
-                               f"levels disagree with shared_bytes")
-    return lib
-
-
-def blocks_per_sm(device, n_levels: int, count_steps: bool = False,
-                  lib=None) -> int:
-    """Blocks of the wide kernel (or of ``lib``, a variant bound by
-    ``bind``) that fit on one SM of ``device`` for a tree of ``n_levels``
-    wide levels: the persistent grid's second factor."""
-    return _fit(lib or _library(), torch.device(device), n_levels,
-                count_steps)[1]
-
-
-def _fit(lib, dev, n_levels, count_steps):
-    key = (dev.index, lib._name, bool(count_steps), n_levels)
-    fit = traverse_ops._occupancy.get(key)
-    if fit is None:
-        out = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            rc = lib.bvh_wide_blocks_per_sm(int(count_steps), n_levels,
-                                            ctypes.addressof(out))
-            if rc != 0:
-                raise RuntimeError("bvh_wide occupancy query failed: "
-                                   + lib.bvh_wide_error_string(rc).decode())
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        fit = traverse_ops._occupancy[key] = (sms, out.value)
-    return fit
+def blocks_per_sm(device, n_levels: int, count_steps: bool = False) -> int:
+    """Blocks of the wide kernel that fit on one SM of ``device`` for a
+    tree of ``n_levels`` wide levels: the persistent grid's second
+    factor."""
+    return _fit(_library(), "bvh_wide", torch.device(device),
+                int(count_steps), n_levels)[1]
 
 
 # (data_ptr, version, tri rows) of leaf8 tables already checked.
@@ -237,10 +214,7 @@ def _check_tables(nodes8, leaf8, tris, depth, dev):
     return off, root_children(depth)
 
 
-def _launch(nodes8, leaf8, tris, ray_o, ray_d, depth, count_steps=False,
-            lib=None):
-    """The wide kernel, or ``lib`` (a variant bound by ``bind``: the lever
-    sweep's), on CUDA tensors."""
+def _launch(nodes8, leaf8, tris, ray_o, ray_d, depth, count_steps=False):
     dev = ray_o.device
     n = ray_o.shape[0]
     off, n_root = _check_tables(nodes8, leaf8, tris, depth, dev)
@@ -252,10 +226,10 @@ def _launch(nodes8, leaf8, tris, ray_o, ray_d, depth, count_steps=False,
     _check("ray_d", ray_d, torch.float32, (n, 3), dev)
     idx, t, counts = _outputs(n, dev, count_steps)
     work = traverse_ops.work_counter(dev)
-    lib = lib or _library()
+    lib = _library()
     with torch.cuda.device(dev):
         grid = traverse_ops.tile_grid(
-            n, *_fit(lib, dev, len(off), count_steps), WIDE)
+            n, *_fit(lib, "bvh_wide", dev, int(count_steps), len(off)), WIDE)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bvh_wide(
             nodes8.data_ptr(), leaf8.data_ptr(), tris.data_ptr(),

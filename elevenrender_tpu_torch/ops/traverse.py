@@ -68,15 +68,14 @@ from .intersect import moller_trumbore
 # The binary kernels' deepest tree: a stack entry is (node << 5) | depth
 # in an int32 (csrc/bvh_traverse.cu bvh_traverse_max_depth).
 MAX_DEPTH = 25
-THREADS = 128  # a block of the binary kernel (bvh_traverse_threads)
+THREADS = 128  # a block of every traversal kernel (bvh_*_threads)
 RUN = 32       # rays a warp takes from the work counter at once
 FRONTIERS = range(2, 9)    # the frontier-K walk's K
 FRONTIER_MAX_DEPTH = 20    # csrc/bvh_frontier.cu kMaxDepth
 # The lane-tile kernels (csrc/bvh_frontier.cu, csrc/bvh_wide.cu): one ray
-# per tile of lanes, blocks of TILE_THREADS, a tile takes one ray at a time
-# from the work counter, and a block's stacks live in at most SHARED_LIMIT
-# bytes of shared memory (more needs an opt-in).
-TILE_THREADS = 128
+# per tile of lanes, a tile takes one ray at a time from the work counter,
+# and a block's stacks live in at most SHARED_LIMIT bytes of shared memory
+# (more needs an opt-in).
 SHARED_LIMIT = 48 * 1024
 # The frontier kernel's scan scratch, per warp: a range table of 64
 # (start, shift) int32 pairs and one 8-byte key for each of up to 16 tiles.
@@ -146,8 +145,8 @@ def frontier_shared_bytes(frontier: int, depth: int) -> int:
     warp's ``FRONTIER_SCRATCH``, then one stack of ``frontier_stack_rows``
     int32 for each of its tiles.  Raises where a block would not fit in
     ``SHARED_LIMIT``."""
-    tiles = TILE_THREADS // frontier_tile(frontier)
-    nbytes = (TILE_THREADS // 32 * FRONTIER_SCRATCH
+    tiles = THREADS // frontier_tile(frontier)
+    nbytes = (THREADS // 32 * FRONTIER_SCRATCH
               + tiles * frontier_stack_rows(frontier, depth) * 4)
     if nbytes > SHARED_LIMIT:
         raise ValueError(f"frontier {frontier} at depth {depth}: {nbytes} "
@@ -158,13 +157,13 @@ def frontier_shared_bytes(frontier: int, depth: int) -> int:
 def tile_grid(n: int, sm_count: int, blocks_per_sm: int, tile: int) -> int:
     """Blocks of a lane-tile kernel's persistent grid for ``n`` rays: every
     block that fits on the card at once, but no more than the rays fill
-    (a tile takes one ray at a time, a block holds ``TILE_THREADS //
-    tile`` tiles)."""
+    (a tile takes one ray at a time, a block holds ``THREADS // tile``
+    tiles)."""
     if sm_count < 1 or blocks_per_sm < 1:
         raise ValueError(f"{sm_count} SMs x {blocks_per_sm} blocks: the "
                          f"kernel does not fit on the card")
     return max(1, min(sm_count * blocks_per_sm,
-                      -(-n // (TILE_THREADS // tile))))
+                      -(-n // (THREADS // tile))))
 
 
 def pack_tables(node_bmin, node_bmax, node_from, node_to, verts_sorted,
@@ -352,22 +351,27 @@ def stack_bytes(depth: int) -> int:
     return _library().bvh_traverse_stack_bytes(depth)
 
 
-# (device index, variant flags, depth) -> (SMs, blocks of that variant per
-# SM; a probe's are its full scan's).
+# (device index, kernel, its query's arguments) -> (SMs, blocks of that
+# kernel per SM; a binary probe's are its full scan's).
 _occupancy: dict = {}
 
 
-def _fit(lib, dev, depth, flags):
-    key = (dev.index, flags, depth)
+def _fit(lib, name: str, dev, *args) -> tuple[int, int]:
+    """(SMs of ``dev``, blocks per SM) of the traversal kernel that
+    ``lib``'s ``{name}_blocks_per_sm(*args, &blocks)`` answers for: the
+    persistent grid's two factors, asked once per device."""
+    key = (dev.index, name, args)
     fit = _occupancy.get(key)
     if fit is None:
         out = ctypes.c_int(0)
-        rc = lib.bvh_traverse_blocks_per_sm(*flags, depth,
-                                            ctypes.addressof(out))
-        if rc != 0:
-            raise RuntimeError("bvh_traverse occupancy query failed: "
-                               + lib.bvh_traverse_error_string(rc).decode())
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        with torch.cuda.device(dev):
+            rc = getattr(lib, f"{name}_blocks_per_sm")(
+                *args, ctypes.addressof(out))
+            if rc != 0:
+                raise RuntimeError(
+                    f"{name} occupancy query failed: "
+                    + getattr(lib, f"{name}_error_string")(rc).decode())
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
         fit = _occupancy[key] = (sms, out.value)
     return fit
 
@@ -375,9 +379,8 @@ def _fit(lib, dev, depth, flags):
 def blocks_per_sm(device, depth: int, any_hit: bool = False) -> int:
     """Blocks of the binary kernel's default variant that fit on one SM of
     ``device`` at ``depth``: the persistent grid's second factor."""
-    dev = torch.device(device)
-    with torch.cuda.device(dev):
-        return _fit(_library(), dev, depth, (int(any_hit), 0, 0, 0, 0))[1]
+    return _fit(_library(), "bvh_traverse", torch.device(device),
+                int(any_hit), 0, 0, 0, 0, depth)[1]
 
 
 # Leaf table -> (its _version, tri rows) when it passed the check.  Keyed
@@ -467,7 +470,8 @@ def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
     flags = (int(any_hit), int(count_steps), int(order == "sign"),
              leaf_aabb if scans else 0, LEAF_MODES.index(leaf_mode))
     with torch.cuda.device(dev):
-        grid = persistent_grid(n, *_fit(lib, dev, depth, flags))
+        grid = persistent_grid(n, *_fit(lib, "bvh_traverse", dev, *flags,
+                                        depth))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bvh_traverse(
             _ptr(tables["boxes"]), _ptr(tables["leaves"]),
@@ -555,76 +559,50 @@ def _frontier_library():
     global _frontier_lib
     if _frontier_lib is None:
         from .. import kernels
-        _frontier_lib = bind_frontier(kernels.load("bvh_frontier"))
+        lib = kernels.load("bvh_frontier")
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.bvh_frontier.argtypes = [p] * 12 + [i] * 6 + [p]
+        lib.bvh_frontier.restype = ctypes.c_int
+        lib.bvh_frontier_blocks_per_sm.argtypes = [i] * 3 + [p]
+        lib.bvh_frontier_blocks_per_sm.restype = ctypes.c_int
+        lib.bvh_frontier_error_string.argtypes = [ctypes.c_int]
+        lib.bvh_frontier_error_string.restype = ctypes.c_char_p
+        for name in ("max_depth", "threads"):
+            getattr(lib, f"bvh_frontier_{name}").restype = ctypes.c_int
+        lib.bvh_frontier_tile_width.argtypes = [i]
+        lib.bvh_frontier_tile_width.restype = ctypes.c_int
+        lib.bvh_frontier_shared_bytes.argtypes = [i, i]
+        lib.bvh_frontier_shared_bytes.restype = ctypes.c_int
+        c_side = (lib.bvh_frontier_max_depth(), lib.bvh_frontier_threads())
+        if c_side != (FRONTIER_MAX_DEPTH, THREADS):
+            raise RuntimeError(f"csrc/bvh_frontier.cu (kMaxDepth, kThreads) "
+                               f"= {c_side}, ops/traverse.py expects "
+                               f"{(FRONTIER_MAX_DEPTH, THREADS)}")
+        for k in FRONTIERS:
+            if lib.bvh_frontier_tile_width(k) != frontier_tile(k):
+                raise RuntimeError(f"csrc/bvh_frontier.cu tile width for "
+                                   f"K={k} disagrees with frontier_tile")
+            for dep in range(1, FRONTIER_MAX_DEPTH + 1):
+                if (lib.bvh_frontier_shared_bytes(k, dep)
+                        != frontier_shared_bytes(k, dep)):
+                    raise RuntimeError(
+                        f"csrc/bvh_frontier.cu shared bytes for K={k}, "
+                        f"depth {dep} disagree with frontier_shared_bytes")
+        _frontier_lib = lib
     return _frontier_lib
 
 
-def bind_frontier(lib):
-    """``lib`` (a build of csrc/bvh_frontier.cu, or of a variant of it that
-    keeps its C interface) with its entry points typed and its sizing
-    checked against this module's."""
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    lib.bvh_frontier.argtypes = [p] * 12 + [i] * 6 + [p]
-    lib.bvh_frontier.restype = ctypes.c_int
-    lib.bvh_frontier_blocks_per_sm.argtypes = [i] * 3 + [p]
-    lib.bvh_frontier_blocks_per_sm.restype = ctypes.c_int
-    lib.bvh_frontier_error_string.argtypes = [ctypes.c_int]
-    lib.bvh_frontier_error_string.restype = ctypes.c_char_p
-    for name in ("max_depth", "threads"):
-        getattr(lib, f"bvh_frontier_{name}").restype = ctypes.c_int
-    lib.bvh_frontier_tile_width.argtypes = [i]
-    lib.bvh_frontier_tile_width.restype = ctypes.c_int
-    lib.bvh_frontier_shared_bytes.argtypes = [i, i]
-    lib.bvh_frontier_shared_bytes.restype = ctypes.c_int
-    c_side = (lib.bvh_frontier_max_depth(), lib.bvh_frontier_threads())
-    if c_side != (FRONTIER_MAX_DEPTH, TILE_THREADS):
-        raise RuntimeError(f"csrc/bvh_frontier.cu (kMaxDepth, kThreads) "
-                           f"= {c_side}, ops/traverse.py expects "
-                           f"{(FRONTIER_MAX_DEPTH, TILE_THREADS)}")
-    for k in FRONTIERS:
-        if lib.bvh_frontier_tile_width(k) != frontier_tile(k):
-            raise RuntimeError(f"csrc/bvh_frontier.cu tile width for K={k} "
-                               f"disagrees with frontier_tile")
-        for dep in range(1, FRONTIER_MAX_DEPTH + 1):
-            if (lib.bvh_frontier_shared_bytes(k, dep)
-                    != frontier_shared_bytes(k, dep)):
-                raise RuntimeError(
-                    f"csrc/bvh_frontier.cu shared bytes for K={k}, depth "
-                    f"{dep} disagree with frontier_shared_bytes")
-    return lib
-
-
 def frontier_blocks_per_sm(device, frontier: int, depth: int,
-                           count_steps: bool = False, lib=None) -> int:
-    """Blocks of the frontier-K kernel (or of ``lib``, a variant bound by
-    ``bind_frontier``) that fit on one SM of ``device`` at ``depth``: the
-    persistent grid's second factor."""
-    return _frontier_fit(lib or _frontier_library(), torch.device(device),
-                         frontier, depth, count_steps)[1]
-
-
-def _frontier_fit(lib, dev, frontier, depth, count_steps):
-    key = (dev.index, lib._name, frontier, bool(count_steps), depth)
-    fit = _occupancy.get(key)
-    if fit is None:
-        out = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            rc = lib.bvh_frontier_blocks_per_sm(frontier, int(count_steps),
-                                                depth, ctypes.addressof(out))
-            if rc != 0:
-                raise RuntimeError(
-                    "bvh_frontier occupancy query failed: "
-                    + lib.bvh_frontier_error_string(rc).decode())
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        fit = _occupancy[key] = (sms, out.value)
-    return fit
+                           count_steps: bool = False) -> int:
+    """Blocks of the frontier-K kernel that fit on one SM of ``device`` at
+    ``depth``: the persistent grid's second factor."""
+    return _fit(_frontier_library(), "bvh_frontier", torch.device(device),
+                frontier, int(count_steps), depth)[1]
 
 
 def _launch_frontier(tables, ray_o, ray_d, depth, frontier, exclude, t_max,
-                     count_steps=False, lib=None):
-    """The frontier-K kernel, or ``lib`` (a variant bound by
-    ``bind_frontier``: the lever sweep's), on CUDA tensors."""
+                     count_steps=False):
     global frontier_launches
     check_frontier(frontier, depth)
     dev = ray_o.device
@@ -634,10 +612,10 @@ def _launch_frontier(tables, ray_o, ray_d, depth, frontier, exclude, t_max,
     stats = (torch.zeros((2,), dtype=torch.int32, device=dev)
              if count_steps else None)
     work = work_counter(dev)
-    lib = lib or _frontier_library()
+    lib = _frontier_library()
     with torch.cuda.device(dev):
-        grid = tile_grid(n, *_frontier_fit(lib, dev, frontier, depth,
-                                           count_steps),
+        grid = tile_grid(n, *_fit(lib, "bvh_frontier", dev, frontier,
+                                  int(count_steps), depth),
                          frontier_tile(frontier))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bvh_frontier(
