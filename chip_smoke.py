@@ -19,8 +19,10 @@ result line is printed):
     short, or most of the persistent grid without rays): ids, t and
     counters equal;
  4. the main path: the native forward render step on that scene at
-    1024x1024, 5 bounces, through Renderer.step (1 warm-up sample, then 8
-    timed), with the kernel's launch counts;
+    1024x1024, 5 bounces, through Renderer.step (1 warm-up sample, eager,
+    which captures the sample as a CUDA graph; then 8 timed replays),
+    with the kernel's launch counts (a replay adds what its capture
+    counted);
  5. the same scene at 64x64, one sample, on the card and on the CPU;
  6. at the main path's shapes (rays recorded from one sample): the
     kernel against its plain version again, its time per launch in turns
@@ -35,7 +37,7 @@ result line is printed):
     tri table (45.8 MiB) no
     longer fits beside the rest in the card's 50 MB L2;
  8. the config-5 path: its native forward step at 1024x1024, 5 bounces
-    (1 warm-up sample, then 4 timed), 5 closest-hit launches of 1M rays
+    (1 warm-up sample, then 4 timed replays), 5 closest-hit launches of 1M rays
     and 5 merged any-hit launches of 2M rays per sample, peak memory;
  9. a small textured, lit heightfield at 64x64, one sample, card against
     CPU;
@@ -102,7 +104,15 @@ result line is printed):
     any-hit kernel launches per sample, on one stream that is not the
     default stream; (d) the median readback round trip is shorter than
     one chunk of 8 samples; (e) on a second config of 48 samples, pause
-    holds the count, a bare start resumes to 48, abort resets to 0;
+    holds the count, a bare start resumes to 48 (timed: the resumed
+    render replays the graph the first chunk captured), abort resets to
+    0; (f)
+    two more scenes over the wire, each of another albedo, one after the
+    other: each renders its own scene (bit-equal to Renderer.step(16) of
+    it, not the first image), and the reserved memory after the second
+    is within 256 MiB of that after the first (the old renderer's graphs
+    and pools released).  The render thread's samples are graph replays
+    on its own stream;
 19. (a) the host runtime: config 5's 999,698 tris through the C++ SAH
     build and the numpy build, both timed: perm, node ranges and max
     leaf equal, boxes bit-equal; (b) pixel sharding over
@@ -113,7 +123,21 @@ result line is printed):
     for bit, with 5 closest-hit and 5 any-hit launches per sample on
     every rank and each rank's ms/sample and peak memory (the 2 ranks
     share one card: no scaling is measured); the sharded loss and
-    gradients at 64x64 on 2 ranks equal one process's within rtol 1e-5.
+    gradients at 64x64 on 2 ranks equal one process's within rtol 1e-5;
+20. the compiled dispatch (elevenrender_tpu_torch/render/dispatch.py), on
+    the main path (8 samples) and config 5 (4): (a) after a warm-up, one
+    eager sample under torch.cuda.set_sync_debug_mode("error"): no host
+    sync; (b) a fresh capture (its warm-up sample, capture time and the
+    reserved memory it leaves, beside an eager sample's transient peak),
+    then n replays against n eager samples from the same state: passes,
+    sample counts and RNG state equal bit for bit; (c) 5 closest-hit and
+    5 any-hit launches per sample, by the replay accounting over the n
+    replays and by the profiler's kernel names in one replay; (d)
+    ms/sample of Renderer.step (replays) and of the eager loop in turns
+    (eager, graph, graph, eager), then each under the profiler: kernels
+    and device ms per sample, the device's busy share; (e) the guided
+    denoiser at 1024x1024: eager with no sync, the graph replay equal to
+    it bit for bit, both timed in turns.
 The last two lines are one JSON object with the kernels' numbers (and
 the server path's, the host runtime's and the sharded path's) and one
 with the result: {"ok": true, "device": {...}}.
@@ -153,13 +177,24 @@ WIRE_MATERIAL = {"name": "terrain",
                  "roughness": 0.6, "metalness": 0.1}
 
 
+# Phase 18 (f): the albedos of the scenes loaded over the wire after the
+# first (the first is WIRE_MATERIAL's).
+RELOAD_ALBEDOS = ({"r": 0.2, "g": 0.5, "b": 0.8}, {"r": 0.8, "g": 0.3, "b": 0.2})
+# The reserved memory a reload may add to the last one's, on the card:
+# far below the pool of a captured 1024x1024 sample (~1 GiB), so a
+# renderer whose graphs outlive it fails the gate.
+RELOAD_SLACK_MIB = 256
+
+
 def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
     """Phase 18: the render server on ``device`` ("" = the card, as a
     client that names none gets), driven through the client over
     localhost; see the module docstring.  Fails on any gate but the
     launch counts, which the caller reads from the returned dict
-    (``counts``: the traversal wrapper's counts over the 16 samples,
-    ``streams``: the CUDA streams its launches went to)."""
+    (``counts``: the traversal wrapper's counts over the 16 samples, a
+    replay adding what its capture counted; ``streams``: the CUDA
+    streams the eager launches and the graph replays went to)."""
+    import gc
     import socket
     import threading
 
@@ -246,6 +281,44 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
         c.load_hdri(sky)
         c.load_object(obj_text, mtl_text)
 
+    def session_messages(target, materials):
+        """The scene's messages as an in-memory session takes them."""
+        msgs = [("--load_config", [Message.json_msg(config_json(target))]),
+                ("--load_camera", [Message.json_msg(WIRE_CAMERA)])]
+        msgs += [("--load_brdf_material", [Message.json_msg(m)])
+                 for m in materials]
+        msgs += [("--load_hdri", [
+                    Message.json_msg({"name": "hdri", "width": 32,
+                                      "height": 16, "channels": 3,
+                                      "color_space": "LINEAR"}),
+                    Message.float_data(sky.reshape(-1))]),
+                 ("--load_object", [
+                    Message("data", "string", obj_text.encode()),
+                    Message("data", "string", mtl_text.encode())])]
+        return msgs
+
+    def reference_build(target, materials):
+        """(config, IR) of the scene an in-memory session builds from the
+        same messages."""
+        inbox, sent = [], []
+        sess = commands.CommandSession(send=sent.append,
+                                       recv=lambda: inbox.pop(0))
+        msgs = session_messages(target, materials)
+        for cmd, payloads in msgs:
+            inbox.extend(payloads)
+            sess.handle_command(cmd)
+        if [m.get_string_data() for m in sent] != ["ok"] * len(msgs) or inbox:
+            fail("server: the in-memory session did not take the messages")
+        return sess.scene.build(config=sess.config, device=dev)
+
+    def settled_reserved():
+        """Reserved device memory with every free cached block released:
+        what live tensors and live graphs' pools hold."""
+        gc.collect()
+        sync()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
     def wait_for(c, pred, what, limit=600):
         deadline = time.time() + limit
         while True:
@@ -263,6 +336,7 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     real_launch = tr._launch
+    real_replay = torch.cuda.CUDAGraph.replay
     try:
         deadline = time.time() + 30
         while not srv._running:
@@ -290,12 +364,19 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
         streams = set()
 
         def spy(tables, ray_o, *args, **kw):
-            if cuda:
+            # A capture's launches go to the capture stream and run only
+            # on replay: the replay's stream is the one that counts.
+            if cuda and not torch.cuda.is_current_stream_capturing():
                 streams.add(torch.cuda.current_stream(ray_o.device)
                             .cuda_stream)
             return real_launch(tables, ray_o, *args, **kw)
 
+        def replay_spy(graph):
+            streams.add(torch.cuda.current_stream().cuda_stream)
+            return real_replay(graph)
+
         tr._launch = spy
+        torch.cuda.CUDAGraph.replay = replay_spy
         tr.reset_counts()
         t0 = time.time()
         c.start()  # the scene build and upload, then the render thread
@@ -320,6 +401,7 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
                 fail(f"server: {n} of {spp} samples after 600 s")
             time.sleep(0.05)  # a client polling, not a busy loop
         tr._launch = real_launch
+        torch.cuda.CUDAGraph.replay = real_replay
         out["counts"] = (tr.launches, tr.any_hit_launches,
                          dict(tr.variant_launches))
         out["streams"] = sorted(streams)
@@ -345,27 +427,8 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
 
         # (a) The same messages through an in-memory session, rendered
         # synchronously on the default stream.
-        inbox, sent = [], []
-        ref_sess = commands.CommandSession(send=sent.append,
-                                           recv=lambda: inbox.pop(0))
-        for cmd, payloads in (
-                ("--load_config", [Message.json_msg(config_json(spp))]),
-                ("--load_camera", [Message.json_msg(WIRE_CAMERA)]),
-                ("--load_brdf_material", [Message.json_msg(WIRE_MATERIAL)]),
-                ("--load_hdri", [
-                    Message.json_msg({"name": "hdri", "width": 32,
-                                      "height": 16, "channels": 3,
-                                      "color_space": "LINEAR"}),
-                    Message.float_data(sky.reshape(-1))]),
-                ("--load_object", [
-                    Message("data", "string", obj_text.encode()),
-                    Message("data", "string", mtl_text.encode())])):
-            inbox.extend(payloads)
-            ref_sess.handle_command(cmd)
-        if [m.get_string_data() for m in sent] != ["ok"] * 5 or inbox:
-            fail("server: the in-memory session did not take the messages")
         t0 = time.time()
-        rcfg, rir = ref_sess.scene.build(config=ref_sess.config, device=dev)
+        rcfg, rir = reference_build(spp, [WIRE_MATERIAL])
         sync()
         out["build_s"] = time.time() - t0
         if rir["tris"]["verts"].shape[0] != n_tris:
@@ -447,8 +510,12 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
         time.sleep(0.5)
         if c.get_info()["samples"] != s1:
             fail("server: (e) the sample count moved while paused")
+        t0 = time.time()
         c.start()
         wait_for(c, lambda n: n >= target2, "the resumed render")
+        # The resumed render replays the graph its first chunk captured,
+        # with get_info polled every ~5 ms and no pass read meanwhile.
+        out["resume_ms_per_sample"] = (time.time() - t0) / (target2 - s1) * 1e3
         time.sleep(0.2)
         s2 = c.get_info()["samples"]
         c.abort()
@@ -456,9 +523,41 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
         out["pause"] = (s1, s2, s3)
         if s2 != target2 or s3 != 0:
             fail(f"server: (e) resumed to {s2} of {target2}, abort left {s3}")
+
+        # (f) Scenes of other albedos over the wire, one after the other:
+        # each reload renders its own scene (equal to a synchronous
+        # render of it, not the first scene's image), and releases the
+        # last renderer's graphs and pools.
+        materials = [WIRE_MATERIAL]
+        reserved = []
+        for albedo in RELOAD_ALBEDOS:
+            materials.append({**WIRE_MATERIAL, "albedo": albedo})
+            c.load_config(res, res, spp, device=device, compat=False)
+            c.load_brdf_material(materials[-1])
+            c.start()
+            wait_for(c, lambda n: n >= spp, "a reloaded scene's render")
+            got = c.get_pass("beauty")
+            if cuda:
+                reserved.append(settled_reserved() / 2**20)
+            if np.array_equal(got, beauty):
+                fail("server: (f) a reloaded scene rendered the first "
+                     "scene's image")
+            rcfg, rir = reference_build(spp, materials)
+            ref = Renderer(rcfg, rir)
+            ref.step(spp)
+            if not np.array_equal(got, ref.get_pass("beauty")):
+                fail(f"server: (f) the scene of albedo {albedo} over the "
+                     f"wire differs from Renderer.step({spp}) of it")
+            del ref, rir
+        out["reload_reserved_mib"] = reserved
+        if cuda and reserved[1] > reserved[0] + RELOAD_SLACK_MIB:
+            fail(f"server: (f) reserved memory grew from {reserved[0]:.0f} "
+                 f"to {reserved[1]:.0f} MiB over a reload: the last "
+                 f"renderer's graphs were not released")
         c.close()
     finally:
         tr._launch = real_launch
+        torch.cuda.CUDAGraph.replay = real_replay
         srv.shutdown()
         th.join(30)
     if th.is_alive():
@@ -569,13 +668,19 @@ def main():
              "CUDA card")
     import numpy as np
 
-    from elevenrender_tpu_torch import kernels
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from elevenrender_tpu_torch import kernels, profile_step
     from elevenrender_tpu_torch import sweep_traverse as sweep
     from elevenrender_tpu_torch.convert import ir_to
     from elevenrender_tpu_torch.experiments import bvh_wide
     from elevenrender_tpu_torch.ops import sort as sort_ops
     from elevenrender_tpu_torch.ops import traverse as tr
     from elevenrender_tpu_torch.ops.camera import camera_ray
+    from elevenrender_tpu_torch.render import denoise as dn
+    from elevenrender_tpu_torch.render import dispatch
     from elevenrender_tpu_torch.render import grad as grad_mod
     from elevenrender_tpu_torch.render import integrator
     from elevenrender_tpu_torch.render.renderer import Renderer
@@ -1425,6 +1530,148 @@ def main():
                  "and equal to the argsort render on 99% of pixels")
         return times
 
+    def walk_launches(events):
+        """(closest-hit, any-hit) launches of the binary kernel among a
+        profiler's device events, by the kernel's name (demangled, or
+        mangled: bvh_traverse_walk<kAny, ...>)."""
+        got = [0, 0]
+        for e in events:
+            m = re.search(r"bvh_traverse_walk(?:<(true|false)|ILb([01])E)",
+                          e.key)
+            if m:
+                got[m.group(1) == "true" or m.group(2) == "1"] += e.count
+        return tuple(got)
+
+    def dispatch_path(label, cfg, ir_, n):
+        """Phase 20 (a)-(d) on one path at full width; see the module
+        docstring.  Returns its numbers."""
+        out = {}
+        with torch.no_grad():
+            st = integrator.render_sample(cfg, ir_, integrator.init_state(cfg))
+            torch.cuda.synchronize()
+            # (a) no host sync in an eager sample.
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st = integrator.render_sample(cfg, ir_, st)
+            except RuntimeError as e:
+                fail(f"{label}: (a) an eager sample synchronised: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            print(f"[dispatch] {label}: (a) one eager sample under "
+                  f"torch.cuda.set_sync_debug_mode('error'): no sync")
+            # The eager sample's transient memory, for the pool beside it.
+            torch.cuda.reset_peak_memory_stats()
+            a0 = torch.cuda.memory_allocated()
+            integrator.render_sample(cfg, ir_, st)
+            torch.cuda.synchronize()
+            out["eager_transient_mib"] = (torch.cuda.max_memory_allocated()
+                                          - a0) / 2**20
+            # A fresh capture (not the cached one of the paths above):
+            # the warm-up sample, then the capture, with the reserved
+            # memory it leaves behind.
+            graph = dispatch.SampleGraph(cfg)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            r0 = torch.cuda.memory_reserved()
+            graph.run(ir_, st, 1)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            out["capture_reserved_mib"] = (torch.cuda.memory_reserved()
+                                           - r0) / 2**20
+            out["warmup_s"], out["capture_s"] = graph.warmup_s, graph.capture_s
+            # (b) n replays against n eager samples from the same state,
+            # with the replay accounting.
+            start = {k: v.clone() for k, v in st.items()}
+            tr.reset_counts()
+            got = graph.run(ir_, start, n, safe=True)
+            torch.cuda.synchronize()
+            accounted = (tr.launches - tr.any_hit_launches,
+                         tr.any_hit_launches)
+            want = start
+            for _ in range(n):
+                want = integrator.render_sample(cfg, ir_, want)
+            for k in ("passes", "samples", "rng"):
+                if not torch.equal(got[k], want[k]):
+                    fail(f"{label}: (b) {k} after {n} replays differs from "
+                         f"{n} eager samples")
+            if accounted != (5 * n, 5 * n):
+                fail(f"{label}: (b) the replay accounting counted "
+                     f"{accounted} launches over {n} samples")
+            # (c) the launches of one replay, from the profiler.
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                graph.run(ir_, graph.state, 1)
+                torch.cuda.synchronize()
+            events = profile_step.device_events(prof)
+            profiled = walk_launches(events)
+            out["replay_kernels"] = sum(e.count for e in events)
+            if profiled != (5, 5):
+                fail(f"{label}: (c) the profiler saw {profiled} (closest-hit, "
+                     f"any-hit) launches in one replay of "
+                     f"{out['replay_kernels']} device events")
+            print(f"[dispatch] {label}: (b) {n} replays equal {n} eager "
+                  f"samples bit for bit (passes, samples, RNG); (c) "
+                  f"launches per sample (closest-hit, any-hit): accounted "
+                  f"{accounted[0] / n:g}, {accounted[1] / n:g}, profiled in "
+                  f"one replay {profiled} of {out['replay_kernels']} device "
+                  f"events; warm-up sample {graph.warmup_s * 1e3:.1f} ms, "
+                  f"capture {graph.capture_s * 1e3:.1f} ms, reserved memory "
+                  f"the capture left {out['capture_reserved_mib']:.0f} MiB "
+                  f"(an eager sample's transient "
+                  f"{out['eager_transient_mib']:.0f} MiB)")
+            del graph, got, want, start
+        out.update(accounted=accounted, profiled=profiled)
+        # (d) ms/sample in turns, busy share and kernels per sample.
+        prof_out = profile_step.profile_forward(cfg, ir_, n, top=8)
+        for name in ("graph", "eager"):
+            if prof_out[name] is None:
+                fail(f"{label}: (d) the profiler recorded no device time "
+                     f"for the {name} path")
+            out[name] = {k: prof_out[name][k] for k in (
+                "ms_per_sample", "device_ms", "kernels", "busy",
+                "busy_profiled", "ms_by_group")}
+        g, e = out["graph"], out["eager"]
+        print(f"[dispatch] {label}: (d) ms/sample in turns (eager, graph, "
+              f"graph, eager): graph {g['ms_per_sample']}, eager "
+              f"{e['ms_per_sample']}; device busy {g['busy'] * 100:.1f}% "
+              f"under the graph, {e['busy'] * 100:.1f}% eager; kernels per "
+              f"sample {g['kernels']:.0f} / {e['kernels']:.0f}; device "
+              f"ms/sample {g['device_ms']:.2f} / {e['device_ms']:.2f}")
+        return out
+
+    def denoise_graph_check(state):
+        """Phase 20 (e): the denoiser at the state's resolution, guided
+        (the "denoise" pass): eager under the sync check, the graph
+        replay equal to it bit for bit, both timed in turns."""
+        res = int(state["passes"].shape[1] ** 0.5)
+        args = [state["passes"][p].reshape(-1).clone()
+                for p in (integrator.BEAUTY, integrator.NORMAL,
+                          integrator.DENOISE)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = dn.denoise_ops(res, res, *args)
+        except RuntimeError as e:
+            fail(f"denoise: (e) the eager denoiser synchronised: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        dn.denoise(res, res, *args)  # captures, if no call has
+        got = dn.denoise(res, res, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, eager):
+            fail("denoise: (e) the graph replay differs from the eager "
+                 "denoiser")
+        turns = sweep.times_in_turns(
+            {"graph": lambda: dn.denoise(res, res, *args),
+             "eager": lambda: dn.denoise_ops(res, res, *args)}, 5, True)
+        out = {k: float(np.median(v)) for k, v in turns.items()}
+        print(f"[dispatch] denoise {res}x{res} guided: (e) the graph replay "
+              f"equals the eager denoiser bit for bit, no sync; "
+              f"{out['graph']:.2f} ms by replay, {out['eager']:.2f} ms eager "
+              f"(CUDA events, median of 5 in turns)")
+        return out
+
     # ---- 3. kernel against its plain version -----------------------------
     t0 = time.time()
     scene, config, ir = heightfield_scene(grid=182, res=1024, compat=False)
@@ -1553,7 +1800,7 @@ def main():
     print(f"[sweep] launches by variant over both scenes: "
           f"{ {str(k): v for k, v in sorted(sweep_launches.items())} }")
     phase_done("phase 16", t0)
-    del ir5, walk5
+    del walk5
 
     # ---- 17. sort_impl="counting" on the main path ---------------------------
     t0 = time.time()
@@ -1598,7 +1845,9 @@ def main():
           f"{srv['denoise_ms']:.1f} ms (median of 3, CUDA events), on the "
           f"CPU {srv['denoise_cpu_s']:.2f} s, the denoise round trip "
           f"{srv['denoise_round_trip_ms']:.0f} ms; (e) paused at, resumed "
-          f"to, after abort: {srv['pause']}")
+          f"to, after abort: {srv['pause']}, the resumed render "
+          f"{srv['resume_ms_per_sample']:.1f} ms/sample (its captured graph "
+          f"replayed, get_info polled, no pass read)")
     if srv_closest != 5 * n_srv or srv_any_hit != 5 * n_srv:
         fail(f"server: (c) {srv_closest} closest-hit and {srv_any_hit} "
              f"any-hit launches over {n_srv} samples, expected 5 and 5 per "
@@ -1621,6 +1870,11 @@ def main():
           f"{srv['obj_parse_python_s']:.3f} s, meshes equal")
     if srv["obj_parse_route"] != "c++":
         fail("server: load_objs did not take the C++ tokenizer")
+    print(f"[server] (f) {len(RELOAD_ALBEDOS)} scenes of other albedos "
+          f"loaded over the wire one after the other: each equals "
+          f"Renderer.step({n_srv}) of it bit for bit; reserved memory after "
+          f"each render {[round(m) for m in srv['reload_reserved_mib']]} "
+          f"MiB (gate: a reload adds at most {RELOAD_SLACK_MIB} MiB)")
     phase_done("phase 18", t0)
 
     # ---- 19. the host runtime and pixel sharding -------------------------
@@ -1665,6 +1919,17 @@ def main():
           f"ranks share one card: no scaling is claimed.")
     phase_done("phase 19", t0)
 
+    # ---- 20. the compiled dispatch: CUDA graphs against eager ----------------
+    t0 = time.time()
+    dispatch_numbers = {"main": dispatch_path("main", cfg, ir, 8),
+                        "config5": dispatch_path("config5", cfg5, ir5, 4)}
+    del ir5
+    ref = Renderer(cfg, ir)
+    ref.step(4)
+    dispatch_numbers["denoise_ms"] = denoise_graph_check(ref.state)
+    del ref
+    phase_done("phase 20", t0)
+
     src = "elevenrender_tpu_torch/csrc/bvh_traverse.cu"
     row12 = "elevenrender_tpu/ops/bvh_pallas.py:102"
     row3 = "elevenrender_tpu/ops/bvh_pallas.py:102 (stream=True)"
@@ -1702,7 +1967,9 @@ def main():
                    "ms_v1_bounce0": timing["closest_b0"]["ms_v1"],
                    "launches_forward_path": main_closest,
                    "launches_gradient_path": grad_launches[("near", 0)][0],
-                   "launches_server_path": srv_closest})),
+                   "launches_server_path": srv_closest,
+                   "launches_per_graph_replay":
+                       dispatch_numbers["main"]["profiled"][0]})),
         entry("bvh_traverse any-hit", row12,
               main_any_hit + grad_launches[("near", 0)][1] + srv_any_hit,
               err12["any_hit"], timing["any_hit_b1"], against_v1(
@@ -1710,16 +1977,22 @@ def main():
                   {"launches_forward_path": main_any_hit,
                    "launches_gradient_path":
                        grad_launches[("near", 0)][1],
-                   "launches_server_path": srv_any_hit})),
+                   "launches_server_path": srv_any_hit,
+                   "launches_per_graph_replay":
+                       dispatch_numbers["main"]["profiled"][1]})),
         entry("bvh_traverse closest-hit, stream residency (config 5)", row3,
               c5_closest, err3["closest"], timing5["closest_b1"], against_v1(
                   timing5["closest_b1"], False, depth5,
                   {"ms_bounce0": timing5["closest_b0"]["ms"],
-                   "ms_v1_bounce0": timing5["closest_b0"]["ms_v1"]})),
+                   "ms_v1_bounce0": timing5["closest_b0"]["ms_v1"],
+                   "launches_per_graph_replay":
+                       dispatch_numbers["config5"]["profiled"][0]})),
         entry("bvh_traverse any-hit, stream residency (config 5, merged "
               "2N-ray shadow launch)", row3, c5_any_hit, err3["any_hit"],
               timing5["any_hit_b1"],
-              against_v1(timing5["any_hit_b1"], True, depth5, {})),
+              against_v1(timing5["any_hit_b1"], True, depth5, {
+                  "launches_per_graph_replay":
+                      dispatch_numbers["config5"]["profiled"][1]})),
     ]
     # Row 4, the variants a render can ask for: launched on the gradient
     # path (phase 14), timed at the main path's shapes (phase 12), held
@@ -1857,13 +2130,15 @@ def main():
         "ms_per_sample", "sync_ms_per_sample", "thread_ms_per_sample",
         "chunk_ms", "start_s",
         "build_s", "obj_parse_s", "load_s", "denoise_ms", "denoise_cpu_s",
-        "denoise_round_trip_ms", "peak_mib", "a_max_abs_diff", "b_close")}
+        "denoise_round_trip_ms", "peak_mib", "a_max_abs_diff", "b_close",
+        "reload_reserved_mib", "resume_ms_per_sample")}
     server_numbers.update(readback_info_ms_median=info_med,
                           readback_pass_ms_median=pass_med)
     print(json.dumps({"kernels": kern, "instruments": instruments,
                       "counting_ms_per_sample": counting_ms,
                       "server_path": server_numbers,
-                      "host_runtime": host, "sharding": shard}))
+                      "host_runtime": host, "sharding": shard,
+                      "dispatch": dispatch_numbers}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

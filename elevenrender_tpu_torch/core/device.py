@@ -7,6 +7,9 @@ used only when the caller passes ``device="cpu"`` (as the tests do).
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 
@@ -17,3 +20,42 @@ def resolve_device(device) -> torch.device:
             "device='cuda' was requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the port's plain PyTorch path")
     return dev
+
+
+_constants: dict = {}
+
+
+def constant(values: tuple, device) -> torch.Tensor:
+    """The float32 vector ``values`` on ``device``, uploaded on first use
+    and shared read-only after (never written, never freed).  A constant
+    that a render sample built per call would be a host-to-device copy
+    each time, which a card completes with a stream sync, and which a
+    CUDA graph cannot capture."""
+    key = (tuple(values), torch.device(device))
+    t = _constants.get(key)
+    if t is None:
+        t = _constants[key] = torch.tensor(values, dtype=torch.float32,
+                                           device=key[1])
+    return t
+
+
+_capture_lock = threading.Lock()
+_capture_streams: dict = {}
+
+
+@contextlib.contextmanager
+def graph_capture(graph, device):
+    """Capture the block into the ``torch.cuda.CUDAGraph`` ``graph`` on
+    ``device``: one capture in the process at a time, on a high-priority
+    stream kept for captures (the render and readback streams come from
+    the default-priority pool, so no other thread's work lands on it),
+    with ``capture_error_mode="thread_local"`` (a thread that reads back
+    meanwhile does not abort it).  A capture that fails raises."""
+    with _capture_lock:
+        stream = _capture_streams.get(device)
+        if stream is None:
+            stream = _capture_streams[device] = torch.cuda.Stream(
+                device, priority=-1)
+        with torch.cuda.device(device), torch.cuda.graph(
+                graph, stream=stream, capture_error_mode="thread_local"):
+            yield

@@ -13,7 +13,11 @@ from __future__ import annotations
 import torch
 
 MASK32 = 0xFFFFFFFF
-_UINT_MAX_F = 4294967295.0
+# float32(4294967295.0): the JAX package's divisor, which rounds up to
+# 2^32 in float32.  A power of two, so the quotient is exact whether the
+# division runs in float32 or double, or (a CUDA tensor over a Python
+# scalar) as a product with the reciprocal.
+_UINT_MAX_F32 = 4294967296.0
 
 
 def jenkins_hash(seed: torch.Tensor) -> torch.Tensor:
@@ -44,10 +48,10 @@ def next_state(state: torch.Tensor) -> torch.Tensor:
 
 
 def to_float(state: torch.Tensor) -> torch.Tensor:
-    """float32(state) / float32(4294967295.0), as the JAX package divides
-    (the divisor rounds to 2^32 in float32)."""
-    return state.to(torch.float32) / torch.tensor(
-        _UINT_MAX_F, dtype=torch.float32, device=state.device)
+    """float32(state) / float32(4294967295.0), as the JAX package divides.
+    The divisor is a Python float: a tensor built here would be a
+    host-to-device copy per draw, and on a card a stream sync."""
+    return state.to(torch.float32) / _UINT_MAX_F32
 
 
 def next_float(state: torch.Tensor):

@@ -14,8 +14,8 @@ EPS_DENOM = 1e-12
 
 
 def vec3(x, y, z) -> torch.Tensor:
-    """Stack three broadcastable components into a [..., 3] vector."""
-    x, y, z = torch.broadcast_tensors(*(torch.as_tensor(c) for c in (x, y, z)))
+    """Stack three broadcastable tensors into a [..., 3] vector."""
+    x, y, z = torch.broadcast_tensors(x, y, z)
     return torch.stack([x, y, z], dim=-1)
 
 

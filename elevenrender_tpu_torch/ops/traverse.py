@@ -56,6 +56,7 @@ Kernel tables (``pack_tables``, built by ``build_ir``/``ir_from_numpy``):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -97,7 +98,9 @@ _GROUP_SHIFT = {1: 3, 2: 2}
 # experiments/bvh_wide.py).  ``variant_launches`` splits them all by
 # (order, leaf_aabb, leaf_mode, count_steps); the first version's order
 # reads "binary-v1", the frontier walk's "frontier=K", the wide walk's
-# "wide".
+# "wide".  A wrapper counts where it launches; a CUDA graph
+# (render/dispatch.py) takes its capture's counts out (``deferred_counts``)
+# and adds them back on each replay (``add_counts``).
 launches = 0
 any_hit_launches = 0
 v1_launches = 0
@@ -124,6 +127,52 @@ def reset_counts() -> None:
 
 def count_variant(key) -> None:
     variant_launches[key] = variant_launches.get(key, 0) + 1
+
+
+_COUNTERS = ("launches", "any_hit_launches", "v1_launches",
+             "frontier_launches", "wide_launches")
+
+
+def launch_counts() -> dict:
+    """Every launch counter, ``variant_launches`` copied."""
+    g = globals()
+    return {**{k: g[k] for k in _COUNTERS},
+            "variant_launches": dict(variant_launches)}
+
+
+@contextlib.contextmanager
+def deferred_counts():
+    """Take the launches counted inside the block back out of the
+    counters, and yield them (filled in on exit) in ``launch_counts``'
+    shape.  A CUDA graph's capture runs the wrappers, which count, but
+    launches nothing: its kernels run when the graph is replayed, and
+    each replay adds the record with ``add_counts``."""
+    before = launch_counts()
+    taken: dict = {}
+    try:
+        yield taken
+    finally:
+        after = launch_counts()
+        taken.update({k: after[k] - before[k] for k in _COUNTERS})
+        taken["variant_launches"] = {
+            k: v - before["variant_launches"].get(k, 0)
+            for k, v in after["variant_launches"].items()
+            if v != before["variant_launches"].get(k, 0)}
+        g = globals()
+        for k in _COUNTERS:
+            g[k] = before[k]
+        variant_launches.clear()
+        variant_launches.update(before["variant_launches"])
+
+
+def add_counts(counts: dict) -> None:
+    """Add a ``deferred_counts`` record to the counters: the launches of
+    one replay of the graph it was captured with."""
+    g = globals()
+    for k in _COUNTERS:
+        g[k] += counts[k]
+    for k, v in counts["variant_launches"].items():
+        variant_launches[k] = variant_launches.get(k, 0) + v
 
 
 def frontier_stack_rows(frontier: int, depth: int) -> int:

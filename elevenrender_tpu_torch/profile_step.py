@@ -5,8 +5,11 @@
 
 Renders one scene in native mode, 5 bounces: ``heightfield`` is the main
 path's (65,522 tris), ``config5`` the 999,698-tri textured heightfield
-with a point light.  It reports, over ``--samples`` progressive samples after one
-warm-up: the host-clock time per sample, and from ``torch.profiler`` the
+with a point light.  It reports, over ``--samples`` progressive samples
+after one warm-up, for what ``Renderer.step`` runs (replays of the
+sample's CUDA graph, ``render/dispatch.py``) and beside it for the eager
+loop of ``render_sample`` from the same state: the host-clock time per
+sample, and from ``torch.profiler`` the kernels per sample and the
 device time by kernel, grouped into the BVH traversal kernel, sorting,
 gathers/scatters and the rest, with the device's busy and idle share of
 the wall time.  With ``--grad`` it profiles one accumulated forward and
@@ -39,20 +42,27 @@ def _group(name: str) -> str:
     return "elementwise and other"
 
 
+def device_events(prof) -> list:
+    """The profiled span's device events (kernels, copies, memsets) as
+    ``key_averages`` gives them, those with device time."""
+    import torch
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0) > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def _report(prof, label: str, wall_ms: float, samples: int, top: int,
-            plain_ms: float) -> bool:
+            plain_ms: float) -> dict | None:
     """Print one profiled span's device time per sample by group and by
     kernel, and the device's busy share of the span's wall time per
     sample, profiled (``wall_ms``) and unprofiled (``plain_ms``: the
-    profiler slows the host, not the card); False when the profiler
-    recorded no device time."""
-    import torch
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
+    profiler slows the host, not the card).  Returns the numbers
+    (device ms and kernels per sample, busy shares, ms by group), None
+    when the profiler recorded no device time."""
+    events = device_events(prof)
     if not events:
         print(f"{label}: the profiler recorded no device time: no breakdown")
-        return False
+        return None
     total_us = sum(e.device_time_total for e in events) / samples
     n_kernels = sum(e.count for e in events) / samples
     busy = total_us / 1e3 / wall_ms
@@ -72,7 +82,9 @@ def _report(prof, label: str, wall_ms: float, samples: int, top: int,
     for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
         print(f"  {e.device_time_total / samples / 1e3:8.3f} "
               f"{e.count / samples:6.0f}  {e.key[:90]}")
-    return True
+    return {"device_ms": total_us / 1e3, "kernels": n_kernels,
+            "busy_profiled": busy, "busy": total_us / 1e3 / plain_ms,
+            "ms_by_group": {g: us / 1e3 for g, us in groups.items()}}
 
 
 def _profile_grad(config, ir, args) -> int:
@@ -130,7 +142,60 @@ def _profile_grad(config, ir, args) -> int:
                   plain1)
     ok2 = _report(prof2, "pass 2 (replay, forward + backward)", wall2, n,
                   args.top, plain2)
-    return 0 if ok1 and ok2 else 1
+    return 0 if ok1 is not None and ok2 is not None else 1
+
+
+def profile_forward(config, ir, samples: int, top: int = 15,
+                    log=print) -> dict:
+    """``Renderer.step`` (graph replays) and the eager loop of
+    ``render_sample`` from the same state, ``samples`` each after one
+    warm-up step: unprofiled ms/sample in turns (eager, graph, graph,
+    eager), then each under the profiler, its busy share taken against
+    its faster unprofiled turn.  Returns {"graph": ..., "eager": ...}:
+    ``_report``'s numbers with the two unprofiled ms/sample, or None
+    where the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .render.integrator import render_sample
+    from .render.renderer import Renderer
+
+    renderer = Renderer(config, ir)
+    renderer.step(1)  # the eager warm-up sample and the capture
+    start = renderer.state
+
+    def graph():
+        renderer.state = start
+        renderer.step(samples)
+
+    def eager():
+        st = start
+        with torch.no_grad():
+            for _ in range(samples):
+                st = render_sample(config, ir, st)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return (time.time() - t0) / samples * 1e3
+
+    turns = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        turns[name].append(wall(graph if name == "graph" else eager))
+    out = {}
+    for name, fn, label in (
+            ("graph", graph, "Renderer.step (graph replays)"),
+            ("eager", eager, "eager render_sample loop")):
+        plain = sorted(turns[name])[0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_ms = wall(fn)
+        log(f"{label}: {turns[name]} ms/sample unprofiled, in turns")
+        res = _report(prof, label, prof_ms, samples, top, plain)
+        out[name] = res and {**res, "ms_per_sample": turns[name]}
+    return out
 
 
 def main(argv=None) -> int:
@@ -148,9 +213,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA card", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
-
-    from .render.renderer import Renderer
     from .scene.demo import heightfield_scene, textured_heightfield_scene
 
     if args.scene == "config5":
@@ -168,24 +230,8 @@ def main(argv=None) -> int:
           f"{args.res}x{args.res}, 5 bounces, native")
     if args.grad:
         return _profile_grad(config, ir, args)
-    renderer = Renderer(config, ir)
-    renderer.step(1)
-    torch.cuda.synchronize()
-
-    t0 = time.time()
-    renderer.step(args.samples)
-    torch.cuda.synchronize()
-    wall_plain = (time.time() - t0) / args.samples * 1e3
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        renderer.step(args.samples)
-        torch.cuda.synchronize()
-        wall_prof = (time.time() - t0) / args.samples * 1e3
-
-    return 0 if _report(prof, "forward step", wall_prof, args.samples,
-                        args.top, wall_plain) else 1
+    out = profile_forward(config, ir, args.samples, args.top)
+    return 0 if all(v is not None for v in out.values()) else 1
 
 
 if __name__ == "__main__":

@@ -17,6 +17,13 @@ and elementwise math, and so does this port, op for op:
   values; so ``_lit_median`` sorts and picks the middle itself.  A
   frame with no lit pixel has floor 0.
 
+On a card ``denoise`` replays a CUDA graph, the counterpart of the JAX
+package's jitted filters: one capture per (device, H, W, guides given),
+made at the first call after that call's eager run, with the tap weights
+(host floats) as constants of the capture.  Its inputs are copied into
+the graph's buffers and its result comes back as a fresh tensor; the
+filters make no host sync, so the capture holds every kernel.
+
 Taps are ``torch.roll`` (wrapping, as ``jnp.roll``), the pyramid's box
 is edge-padded.  Every function takes and returns [H, W, C] float32
 tensors on any device; XLA on the CPU contracts a*b+c where PyTorch
@@ -26,8 +33,12 @@ bit.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
+
+from ..core.device import graph_capture
 
 
 def _roll(x, dy: int, dx: int):
@@ -102,11 +113,13 @@ def _lit_median(d2s, lit):
     keep = lit & ~torch.isnan(d2s)
     vals = torch.where(keep, d2s, torch.full_like(d2s, float("inf")))
     srt = torch.sort(vals.reshape(-1)).values
-    n = keep.sum()
-    lo = srt[torch.div(torch.clamp(n - 1, min=0), 2, rounding_mode="floor")]
-    hi = srt[torch.clamp(torch.div(n, 2, rounding_mode="floor"),
-                         max=srt.numel() - 1)]
-    return torch.where(n > 0, (lo + hi) * 0.5, torch.zeros_like(lo))
+    n = keep.sum().reshape(1)
+    # gather, not srt[n]: a 0-d tensor index is read on the host.
+    lo = srt.gather(0, torch.div(torch.clamp(n - 1, min=0), 2,
+                                 rounding_mode="floor"))
+    hi = srt.gather(0, torch.clamp(torch.div(n, 2, rounding_mode="floor"),
+                                   max=srt.numel() - 1))
+    return torch.where(n > 0, (lo + hi) * 0.5, torch.zeros_like(lo))[0]
 
 
 def nlm_denoise(color, normal=None, albedo=None, radius: int = 4,
@@ -165,8 +178,8 @@ def _box3_edge(x):
 def _up2(x, h: int, w: int):
     """2x nearest upsample, edge-padded or cropped to (h, w), then the
     edge-padded 3x3 box."""
-    r = torch.repeat_interleave(torch.repeat_interleave(x, 2, dim=0), 2,
-                                dim=1)
+    hx, wx, c = x.shape
+    r = x[:, None, :, None].expand(hx, 2, wx, 2, c).reshape(2 * hx, 2 * wx, c)
     if r.shape[0] < h:
         r = torch.cat([r, r[-1:]], dim=0)
     if r.shape[1] < w:
@@ -195,7 +208,68 @@ def denoise(width: int, height: int, raw, normal=None, albedo=None):
     """Flat float4 [H*W*4] in (a tensor or a numpy array), flat float4
     [H*W*4] tensor out on the input's device, alpha 1.  With a guide the
     multi-scale guided NL-means, without the colour-only
-    cross-bilateral."""
+    cross-bilateral.  On a card, by replay of the shape's captured graph
+    (the module's note)."""
+    raw = torch.as_tensor(raw)
+    if not raw.is_cuda:
+        return denoise_ops(width, height, raw, normal, albedo)
+    inputs = [raw.reshape(-1)] + [
+        None if x is None else torch.as_tensor(x, device=raw.device)
+        .reshape(-1) for x in (normal, albedo)]
+    key = (raw.device, height, width, normal is not None,
+           albedo is not None)
+    with _graphs_lock:
+        graph = _graphs.get(key)
+        if graph is None:
+            graph = _graphs[key] = _DenoiseGraph(width, height)
+    return graph.run(inputs)
+
+
+class _DenoiseGraph:
+    """``denoise_ops`` at one shape and set of guides, captured on the
+    card: static input buffers (None for a guide not given), the graph
+    (with its pool) and its output.  Its first run is eager, then
+    captures.  Serialised as ``dispatch.SampleGraph`` is."""
+
+    def __init__(self, width, height):
+        self.width, self.height = width, height
+        self.inputs = self.out = self.graph = None
+        self._lock = threading.Lock()
+        self._done = None
+
+    def run(self, inputs):
+        with self._lock:
+            stream = torch.cuda.current_stream(inputs[0].device)
+            if self._done is not None:
+                stream.wait_event(self._done)
+            if self.graph is None:
+                res = denoise_ops(self.width, self.height, *inputs)
+                self.inputs = [None if x is None else x.clone()
+                               for x in inputs]
+                graph = torch.cuda.CUDAGraph()
+                with graph_capture(graph, inputs[0].device):
+                    self.out = denoise_ops(self.width, self.height,
+                                           *self.inputs)
+                self.graph = graph
+            else:
+                for buf, x in zip(self.inputs, inputs):
+                    if buf is not None:
+                        buf.copy_(x)
+                self.graph.replay()
+                res = self.out.clone()
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+            return res
+
+
+# (device, H, W, normal given, albedo given) -> _DenoiseGraph, for the
+# process's life: one entry per image size a session reads.
+_graphs: dict = {}
+_graphs_lock = threading.Lock()
+
+
+def denoise_ops(width: int, height: int, raw, normal=None, albedo=None):
+    """``denoise`` op by op, on any device: what the graph captures."""
     img = torch.as_tensor(raw).reshape(height, width, 4)
 
     def guide(x):

@@ -14,7 +14,9 @@ bounce also picks one light per lane, and the environment and light
 shadow rays go through one any-hit launch of 2N rays.
 
 Both traversals of a bounce go through ``ops.traverse.traverse``: the
-CUDA kernel on the card, its plain version on the CPU.  Rays are sorted
+CUDA kernel on the card, its plain version on the CPU.  A sample makes no
+host sync (no tensor built from host data, nothing read back), so on the
+card ``render/dispatch.py`` captures it whole as a CUDA graph.  Rays are sorted
 once per bounce by hit point and sampled direction (and the native
 shadow rays by their own gate) so that neighbouring threads walk
 neighbouring rays; the sort changes no result beyond equal-t ties.
@@ -37,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import rng as rng_mod
-from ..core.device import resolve_device
+from ..core.device import constant, resolve_device
 from ..core.vecmath import dot, normalize, where3
 from ..ops import hdri as hdri_ops
 from ..ops import traverse as traverse_ops
@@ -105,12 +107,15 @@ def resolve_trace_mode(config, ir) -> str:
 
 def recommended_samples_per_dispatch(config, ir, default: int = 8) -> int:
     """Samples per chunk of a background render (``Renderer.start``
-    takes the smaller of this and ``config.block_size``).
+    takes the smaller of this and ``config.block_size``): the render
+    thread publishes a snapshot after each chunk.
 
     The JAX package bounds this by scene scale, because one jitted
     dispatch there must stay inside its runtime's wall-time envelope.
-    PyTorch runs eagerly, one kernel at a time, so no scene size forces a
-    smaller chunk (and the gradient accumulator ignores its ``chunk``):
+    Here a chunk of n samples is n replays of one captured sample
+    (``render/dispatch.py``), each its own launch, and the card has no
+    per-launch watchdog, so no scene size forces a smaller chunk (and the
+    gradient accumulator, which runs eagerly, ignores its ``chunk``):
     the function keeps the two overrides and otherwise returns
     ``default``.
     ``config.samples_per_dispatch > 0`` wins over the default, and the
@@ -170,8 +175,7 @@ def _trace(config, ir, ray_o, ray_d, mask=None, perm=None, exclude=None,
 
     if mask is not None:
         far = ir["bvh"]["node_bmax"][0] + 1e7
-        up = torch.tensor([0.0, 0.0, 1.0], dtype=ray_d.dtype,
-                          device=ray_d.device)
+        up = constant((0.0, 0.0, 1.0), ray_d.device)
         ray_o = where3(mask, ray_o, far.expand_as(ray_o))
         ray_d = where3(mask, ray_d, up.expand_as(ray_d))
 

@@ -4,23 +4,28 @@ Port of ``elevenrender_tpu/render/renderer.py``.  The reference launches a
 render thread that submits one kernel per sample and reads passes and
 progress through a second SYCL queue while it renders.  Here:
 
+- Samples go through the compiled dispatch (``render/dispatch.py``): on
+  a card one progressive sample is captured once as a CUDA graph (after
+  one eager warm-up sample) and every later sample is a replay of it.
 - ``step(n)`` renders n samples synchronously on the caller's stream.
 - ``start`` renders in a background thread, in chunks of samples.  On a
   card the thread runs on a CUDA stream of its own, which first waits
   for the caller's stream (where the IR and the first state were
-  uploaded); the traversal wrappers launch on the current stream, so
-  the kernel follows it.  After each chunk the thread records an event,
-  waits for it and publishes (state, event) as the snapshot, under a
-  lock.
+  uploaded); a replay launches on the current stream, so the graph
+  follows it.  After each chunk the thread records an event, waits for
+  it and publishes (state, event) as the snapshot, under a lock.
 - Readback (``get_pass``, ``get_render_info``, checkpoints) takes the
   snapshot and reads it on a readback stream that waits for that
   snapshot's event only, never for the chunk that is running; the copy
-  to the host is synchronous.  The integrator writes nothing in place,
-  so a snapshot stays valid while the next chunk runs.
+  to the host is synchronous.  The graph advances its own state buffers
+  in place, so the renderer takes the ``_safe`` form: each step or chunk
+  ends with a device copy of them, which no later replay writes, and
+  that copy is the snapshot.  It stays valid while the next chunk runs.
 - A chunk that raises ends the thread: the error is logged and kept in
   ``error``, and the snapshot, so the progress, stays where it was.
 
-On the CPU the thread runs the same torch ops, with no streams.
+On the CPU the thread runs the same torch ops, with no streams and no
+graph.
 """
 
 from __future__ import annotations
@@ -36,9 +41,9 @@ from ..convert import ir_to
 from ..core.device import resolve_device
 from ..utils.logging import get_logger
 from . import denoise as denoise_mod
+from .dispatch import render_samples_jit_safe
 from .integrator import (BEAUTY, BITANGENT, DENOISE, NORMAL, TANGENT,
-                         init_state, recommended_samples_per_dispatch,
-                         render_sample)
+                         init_state, recommended_samples_per_dispatch)
 
 log = get_logger()
 
@@ -109,21 +114,25 @@ class Renderer:
             self._snapshot = (state, event)
 
     # -- stepping ---------------------------------------------------------
-    def step(self, n: int = 1) -> None:
-        """Run n progressive samples synchronously.  No autograd graph is
-        built, even if a scene tensor requires grad: the accumulators
+    def _render(self, n: int) -> None:
+        """n samples by replay of the captured sample, into a new state
+        (the ``_safe`` form: the snapshot guarantee).  No autograd graph
+        is built, even if a scene tensor requires grad: the accumulators
         would otherwise hold the graph of every sample (gradients are
         ``render/grad.py``'s entry points)."""
+        self.state = render_samples_jit_safe(self.config, self.ir,
+                                             self.state, n,
+                                             device=self.device)
+
+    def step(self, n: int = 1) -> None:
+        """Run n progressive samples synchronously."""
         if self._cuda:
             # After a background render: its stream's state, read here.
             current = torch.cuda.current_stream(self.device)
             current.wait_stream(self._stream)
             for t in self.state.values():
                 t.record_stream(current)
-        with torch.no_grad():
-            for _ in range(n):
-                self.state = render_sample(self.config, self.ir, self.state,
-                                           device=self.device)
+        self._render(n)
         self._publish(self.state, self._record())
 
     def start(self, sample_target: int | None = None,
@@ -160,14 +169,11 @@ class Renderer:
                      self.config.x_res, self.config.y_res, target, chunk,
                      self.device)
             try:
-                with torch.cuda.stream(self._stream), torch.no_grad():
+                with torch.cuda.stream(self._stream):
                     done = 0
                     while done < target and not self._stop.is_set():
                         n = min(chunk, target - done)
-                        for _ in range(n):
-                            self.state = render_sample(
-                                self.config, self.ir, self.state,
-                                device=self.device)
+                        self._render(n)
                         event = self._record(self._stream)
                         if event is not None:
                             event.synchronize()
@@ -260,7 +266,9 @@ class Renderer:
 
     def load_checkpoint(self, path: str) -> None:
         """Resume from a checkpoint of this package or the JAX package;
-        the resolution must be the config's."""
+        the resolution must be the config's.  The loaded state replaces
+        ``state``; the next step copies it into the captured sample's
+        buffers, as every step does with its input."""
         data = np.load(path)
         if (int(data["x_res"]) != self.config.x_res
                 or int(data["y_res"]) != self.config.y_res):

@@ -17,13 +17,14 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device import constant
+
 MAX_SHADERS = 4
 
 
 def _placeholder(position, view_dir, normal, gnormal, tu, tv):
     """Constant yellow."""
-    yellow = torch.tensor([1.0, 1.0, 0.0], dtype=torch.float32,
-                          device=position.device)
+    yellow = constant((1.0, 1.0, 0.0), position.device)
     return yellow.expand(position.shape[:-1] + (3,))
 
 

@@ -363,6 +363,9 @@ class CommandSession:
         if self.renderer is not None:
             self.renderer.stop()
             self.renderer.join()
+            # Dropped before the new scene is built: its IR, state and
+            # captured samples (each with its memory pool) go with it.
+            self.renderer = None
         device = find_device(self.config.device)
         config, ir = self.scene.build(config=self.config, device=device)
         self.config = config

@@ -133,8 +133,9 @@ def recorded_launches(cfg, ir, device) -> dict:
     """The rays of one render sample's first launches, as the integrator
     hands them to ``ops.traverse.traverse`` (sorted, masked lanes
     replaced): {"closest_b0", "closest_b1", "any_hit_b1"} ->
-    (o, d, exclude, t_max)."""
-    from .render.renderer import Renderer
+    (o, d, exclude, t_max).  The sample runs eagerly: a replayed graph
+    calls no wrapper."""
+    from .render.integrator import init_state, render_sample
     calls = []
     launch = tr.traverse
 
@@ -147,7 +148,8 @@ def recorded_launches(cfg, ir, device) -> dict:
 
     tr.traverse = record
     try:
-        Renderer(cfg, ir, device=device).step(1)
+        with torch.no_grad():
+            render_sample(cfg, ir, init_state(cfg, device), device=device)
     finally:
         tr.traverse = launch
     if len(calls) < 4:

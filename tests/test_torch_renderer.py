@@ -22,6 +22,7 @@ import torch
 from elevenrender_tpu.render import denoise as jax_denoise
 from elevenrender_tpu.render.renderer import Renderer as JaxRenderer
 from elevenrender_tpu_torch.convert import ir_from_numpy
+from elevenrender_tpu_torch.render import dispatch as dmod
 from elevenrender_tpu_torch.render import integrator as ti
 from elevenrender_tpu_torch.render import renderer as rmod
 from elevenrender_tpu_torch.render.renderer import Renderer, find_device
@@ -183,7 +184,7 @@ def test_a_failed_chunk_ends_the_thread_and_keeps_the_progress(
             raise RuntimeError("launch failed")
         return real(*args, **kw)
 
-    monkeypatch.setattr(rmod, "render_sample", flaky)
+    monkeypatch.setattr(dmod, "render_sample", flaky)
     r.start(8, samples_per_dispatch=2)
     r.join()
     assert isinstance(r.error, RuntimeError)
@@ -284,7 +285,7 @@ def test_readback_holds_no_lock_across_a_chunk(scene, monkeypatch):
         gate.wait(10)
         return real(*args, **kw)
 
-    monkeypatch.setattr(rmod, "render_sample", held)
+    monkeypatch.setattr(dmod, "render_sample", held)
     r.start(2, samples_per_dispatch=1)
     try:
         assert r.get_render_info() == {"samples": 0}
