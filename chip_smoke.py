@@ -22,7 +22,8 @@ result line is printed):
     1024x1024, 5 bounces, through Renderer.step (1 warm-up sample, eager,
     which captures the sample as a CUDA graph; then 8 timed replays),
     with the kernel's launch counts (a replay adds what its capture
-    counted);
+    counted), then 8 more replays, each under the profiler, whose kernel
+    names count the launches (the count the result line carries);
  5. the same scene at 64x64, one sample, on the card and on the CPU;
  6. at the main path's shapes (rays recorded from one sample): the
     kernel against its plain version again, its time per launch in turns
@@ -37,8 +38,9 @@ result line is printed):
     tri table (45.8 MiB) no
     longer fits beside the rest in the card's 50 MB L2;
  8. the config-5 path: its native forward step at 1024x1024, 5 bounces
-    (1 warm-up sample, then 4 timed replays), 5 closest-hit launches of 1M rays
-    and 5 merged any-hit launches of 2M rays per sample, peak memory;
+    (1 warm-up sample, then 4 timed replays and 4 profiled, as in phase
+    4), 5 closest-hit launches of 1M rays and 5 merged any-hit launches
+    of 2M rays per sample, peak memory;
  9. a small textured, lit heightfield at 64x64, one sample, card against
     CPU;
 10. at config 5's recorded shapes: the kernel against its plain version,
@@ -84,8 +86,9 @@ result line is printed):
     counters and bound;
 17. sort_impl="counting": counting_order on the card equals it on the CPU
     for the recorded bounce-1 rays' keys, and Renderer.step at 1024x1024,
-    5 bounces renders with it (10 launches per sample), timed in turns
-    beside sort_impl="argsort";
+    5 bounces renders with it (10 launches per sample, by the counters
+    and by the profiler on one replay), timed in turns beside
+    sort_impl="argsort";
 18. the render server (elevenrender_tpu_torch/server/) on the card,
     through the client over localhost: get_sycl_info (the card first,
     probed compatible, the CPU last); a config of 1024x1024, 16 samples,
@@ -109,10 +112,14 @@ result line is printed):
     0; (f)
     two more scenes over the wire, each of another albedo, one after the
     other: each renders its own scene (bit-equal to Renderer.step(16) of
-    it, not the first image), and the reserved memory after the second
-    is within 256 MiB of that after the first (the old renderer's graphs
-    and pools released).  The render thread's samples are graph replays
-    on its own stream;
+    it, not the first image); after each, the denoise pass and the
+    denoiser on a crop of another size: the reserved memory after the
+    second is within 256 MiB of that after the first (the old renderer's
+    graphs and pools released) and the denoiser holds one graph per set
+    of guides.  The render thread's samples are graph replays on its own
+    stream; its launches are the counters' (a replay adds what its
+    capture counted), and one replay of the synchronous render's graph
+    is counted by the profiler;
 19. (a) the host runtime: config 5's 999,698 tris through the C++ SAH
     build and the numpy build, both timed: perm, node ranges and max
     leaf equal, boxes bit-equal; (b) pixel sharding over
@@ -135,9 +142,12 @@ result line is printed):
     replays and by the profiler's kernel names in one replay; (d)
     ms/sample of Renderer.step (replays) and of the eager loop in turns
     (eager, graph, graph, eager), then each under the profiler: kernels
-    and device ms per sample, the device's busy share; (e) the guided
-    denoiser at 1024x1024: eager with no sync, the graph replay equal to
-    it bit for bit, both timed in turns.
+    and device ms per sample, the device's busy share (the union of the
+    device events' intervals over the profiled wall time) and the device
+    time over the unprofiled wall time; config 5 is built again for this
+    phase; (e) the guided denoiser at 1024x1024: eager with no sync, the
+    graph replay equal to it bit for bit, both timed in turns, and the
+    reserved memory its capture keeps.
 The last two lines are one JSON object with the kernels' numbers (and
 the server path's, the host runtime's and the sharded path's) and one
 with the result: {"ok": true, "device": {...}}.
@@ -165,6 +175,39 @@ def fail(msg):
     sys.exit(1)
 
 
+def walk_launches(events):
+    """(closest-hit, any-hit) launches of the binary kernel among a
+    profiler's device events, by the kernel's name (demangled, or
+    mangled: bvh_traverse_walk<kAny, ...>)."""
+    got = [0, 0]
+    for e in events:
+        m = re.search(r"bvh_traverse_walk(?:<(true|false)|ILb([01])E)", e.key)
+        if m:
+            got[m.group(1) == "true" or m.group(2) == "1"] += e.count
+    return tuple(got)
+
+
+def profiled_launches(fn, times=1):
+    """(closest-hit, any-hit) launches of the binary kernel that the
+    profiler sees on the card over ``times`` calls of ``fn``, each to
+    the end of its work: measured, where the launch counters of a graph
+    replay repeat what its capture counted.  Each call is a profiling
+    session of its own: a session over several back-to-back replays
+    loses device records (PERF.md, PR 9)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from elevenrender_tpu_torch import profile_step
+    got = (0, 0)
+    for _ in range(times):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = tuple(map(sum, zip(got, walk_launches(
+            profile_step.device_events(prof)))))
+    return got
+
+
 # The server phase's scene on the wire: the main path's camera and
 # terrain material, the 32x16 sky, the heightfield as OBJ text.
 WIRE_CAMERA = {"position": {"x": 0.0, "y": 1.5, "z": -4.0},
@@ -184,6 +227,11 @@ RELOAD_ALBEDOS = ({"r": 0.2, "g": 0.5, "b": 0.8}, {"r": 0.8, "g": 0.3, "b": 0.2}
 # far below the pool of a captured 1024x1024 sample (~1 GiB), so a
 # renderer whose graphs outlive it fails the gate.
 RELOAD_SLACK_MIB = 256
+# Phase 18 (f): after each reload the denoiser also runs on a crop of
+# the image, (height, width) as fractions of the scene's size, another
+# size at each reload: a denoiser that kept a graph per size would hold
+# one more at each.
+RELOAD_DENOISE_SHAPES = ((1.0, 0.75), (0.75, 1.0))
 
 
 def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
@@ -496,6 +544,10 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
                 e1.synchronize()
                 times.append(e0.elapsed_time(e1))
             out["denoise_ms"] = float(np.median(times))
+            # One more replay of the synchronous render's graph (the same
+            # config and scene as the server's), its launches counted by
+            # the profiler.
+            out["sync_profiled"] = profiled_launches(lambda: ref.step(1))
         del ref, rir
 
         # (e) pause, resume and abort on a longer target (a new config:
@@ -529,14 +581,24 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
         # render of it, not the first scene's image), and releases the
         # last renderer's graphs and pools.
         materials = [WIRE_MATERIAL]
-        reserved = []
-        for albedo in RELOAD_ALBEDOS:
+        reserved, denoisers = [], []
+        for albedo, (fh, fw) in zip(RELOAD_ALBEDOS, RELOAD_DENOISE_SHAPES):
             materials.append({**WIRE_MATERIAL, "albedo": albedo})
             c.load_config(res, res, spp, device=device, compat=False)
             c.load_brdf_material(materials[-1])
             c.start()
             wait_for(c, lambda n: n >= spp, "a reloaded scene's render")
             got = c.get_pass("beauty")
+            # The denoiser at the scene's size (over the wire), then at
+            # another size, guided and colour only, on a crop.
+            c.get_pass("denoise")
+            h2, w2 = int(res * fh), int(res * fw)
+            crop = [torch.tensor(x, device=dev).reshape(res, res, 4)[
+                :h2, :w2].reshape(-1).clone()
+                for x in (got, c.get_pass("normal"))]
+            dn.denoise(w2, h2, crop[0], crop[1], crop[0])
+            dn.denoise(w2, h2, crop[0])
+            denoisers.append(len(dn._graphs))
             if cuda:
                 reserved.append(settled_reserved() / 2**20)
             if np.array_equal(got, beauty):
@@ -553,7 +615,12 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
         if cuda and reserved[1] > reserved[0] + RELOAD_SLACK_MIB:
             fail(f"server: (f) reserved memory grew from {reserved[0]:.0f} "
                  f"to {reserved[1]:.0f} MiB over a reload: the last "
-                 f"renderer's graphs were not released")
+                 f"renderer's graphs or a denoiser's were not released")
+        out["reload_denoisers"] = denoisers
+        if cuda and max(denoisers) > 2:
+            fail(f"server: (f) the denoiser holds {denoisers} captured "
+                 f"graphs after each reload, more than one per set of "
+                 f"guides")
         c.close()
     finally:
         tr._launch = real_launch
@@ -867,9 +934,13 @@ def main():
 
     def drive(label, cfg, ir, n_timed):
         """Renderer.step at full width: 1 warm-up sample, then n_timed
-        with the launch counts set to 0 just before and read just
-        after.  Fails unless every sample made 5 closest-hit and 5
-        any-hit launches and the beauty pass is finite and positive."""
+        timed, with the launch counts set to 0 just before and read just
+        after; then n_timed more, each under the profiler, whose kernel
+        names count the launches the replays made.  Fails unless the profiler
+        and the counters (a replay adds what its capture counted) each
+        saw 5 closest-hit and 5 any-hit launches per sample and the
+        beauty pass is finite and positive.  Returns the profiled
+        (closest-hit, any-hit) launches."""
         res = cfg.x_res
         torch.cuda.reset_peak_memory_stats()
         renderer = Renderer(cfg, ir)
@@ -883,23 +954,31 @@ def main():
         launches, any_hit = tr.launches, tr.any_hit_launches
         add_path_launches(label, {DEFAULT: 10 * n_timed})
         closest = launches - any_hit
+        tr.reset_counts()
+        profiled = profiled_launches(lambda: renderer.step(1), n_timed)
+        again = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
         rays_per_sample = 2 * cfg.max_bounces * res * res
         beauty = renderer.get_pass("beauty").reshape(res, res, 4)[..., :3]
         print(f"[{label}] {res}x{res} native {cfg.max_bounces} bounces: "
               f"{dt / n_timed * 1e3:.1f} ms/sample, "
               f"{rays_per_sample * n_timed / dt:.4g} rays/s, "
               f"{launches / n_timed:g} kernel launches/sample ({closest} "
-              f"closest, {any_hit} any-hit over {n_timed} samples), peak "
+              f"closest, {any_hit} any-hit over {n_timed} samples by the "
+              f"counters); the profiler's kernel names over {n_timed} more "
+              f"replays: {profiled[0]} closest, {profiled[1]} any-hit "
+              f"(counters {again[0]}, {again[1]}); peak "
               f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
         print(f"[{label}] beauty mean {float(beauty.mean()):.5f}, finite "
               f"{bool(np.isfinite(beauty).all())}, samples "
               f"{renderer.get_render_info()['samples']}")
-        if closest != 5 * n_timed or any_hit != 5 * n_timed:
-            fail(f"{label}: expected 10 kernel launches per sample, got "
-                 f"{launches / n_timed:g}")
+        want = (5 * n_timed, 5 * n_timed)
+        if (closest, any_hit) != want or profiled != want or again != want:
+            fail(f"{label}: expected 5 closest-hit and 5 any-hit launches "
+                 f"per sample, counted {closest}, {any_hit}, profiled "
+                 f"{profiled} over {n_timed} samples")
         if not np.isfinite(beauty).all() or not beauty.mean() > 0:
             fail(f"{label}: beauty pass is not finite with a positive mean")
-        return closest, any_hit
+        return profiled
 
     def card_vs_cpu(label, cfg, ir):
         res = cfg.x_res
@@ -1511,6 +1590,11 @@ def main():
                 torch.cuda.synchronize()
                 times[impl].append((time.time() - t0) / n * 1e3)
                 add_path_launches(f"sort_impl={impl}", {DEFAULT: 10 * n})
+        for impl, r_ in renderers.items():
+            profiled = profiled_launches(lambda: r_.step(1))
+            if profiled != (5, 5):
+                fail(f"sort_impl={impl}: the profiler saw {profiled} "
+                     f"(closest-hit, any-hit) launches in one replay")
         images = {impl: r_.get_pass("beauty").reshape(res, res, 4)[..., :3]
                   for impl, r_ in renderers.items()}
         close = np.isclose(images["counting"], images["argsort"], rtol=1e-4,
@@ -1520,7 +1604,8 @@ def main():
               f"sort_impl=argsort {[round(t, 1) for t in times['argsort']]}, "
               f"sort_impl=counting "
               f"{[round(t, 1) for t in times['counting']]}; 10 launches per "
-              f"sample under both; after {1 + 2 * n} samples "
+              f"sample under both, by the counters and by the profiler on "
+              f"one more replay; after {2 + 2 * n} samples "
               f"{close * 100:.2f}% of pixels within rtol 1e-4 / atol 1e-5, "
               f"means {images['counting'].mean():.6f} / "
               f"{images['argsort'].mean():.6f}")
@@ -1529,18 +1614,6 @@ def main():
             fail("sort_impl=counting: the render is not finite, positive "
                  "and equal to the argsort render on 99% of pixels")
         return times
-
-    def walk_launches(events):
-        """(closest-hit, any-hit) launches of the binary kernel among a
-        profiler's device events, by the kernel's name (demangled, or
-        mangled: bvh_traverse_walk<kAny, ...>)."""
-        got = [0, 0]
-        for e in events:
-            m = re.search(r"bvh_traverse_walk(?:<(true|false)|ILb([01])E)",
-                          e.key)
-            if m:
-                got[m.group(1) == "true" or m.group(2) == "1"] += e.count
-        return tuple(got)
 
     def dispatch_path(label, cfg, ir_, n):
         """Phase 20 (a)-(d) on one path at full width; see the module
@@ -1630,12 +1703,16 @@ def main():
                      f"for the {name} path")
             out[name] = {k: prof_out[name][k] for k in (
                 "ms_per_sample", "device_ms", "kernels", "busy",
-                "busy_profiled", "ms_by_group")}
+                "device_over_unprofiled", "ms_by_group")}
         g, e = out["graph"], out["eager"]
         print(f"[dispatch] {label}: (d) ms/sample in turns (eager, graph, "
               f"graph, eager): graph {g['ms_per_sample']}, eager "
-              f"{e['ms_per_sample']}; device busy {g['busy'] * 100:.1f}% "
-              f"under the graph, {e['busy'] * 100:.1f}% eager; kernels per "
+              f"{e['ms_per_sample']}; device busy (the union of the "
+              f"device events' intervals over the profiled wall time) "
+              f"{g['busy'] * 100:.1f}% under the graph, "
+              f"{e['busy'] * 100:.1f}% eager; device time over the "
+              f"unprofiled wall time {g['device_over_unprofiled'] * 100:.1f}"
+              f"% / {e['device_over_unprofiled'] * 100:.1f}%; kernels per "
               f"sample {g['kernels']:.0f} / {e['kernels']:.0f}; device "
               f"ms/sample {g['device_ms']:.2f} / {e['device_ms']:.2f}")
         return out
@@ -1643,7 +1720,9 @@ def main():
     def denoise_graph_check(state):
         """Phase 20 (e): the denoiser at the state's resolution, guided
         (the "denoise" pass): eager under the sync check, the graph
-        replay equal to it bit for bit, both timed in turns."""
+        replay equal to it bit for bit, both timed in turns; the
+        reserved memory its capture keeps (the graph's pool and its
+        static buffers), from no captured denoiser."""
         res = int(state["passes"].shape[1] ** 0.5)
         args = [state["passes"][p].reshape(-1).clone()
                 for p in (integrator.BEAUTY, integrator.NORMAL,
@@ -1656,7 +1735,15 @@ def main():
             fail(f"denoise: (e) the eager denoiser synchronised: {e}")
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        dn.denoise(res, res, *args)  # captures, if no call has
+        dn._graphs.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        dn.denoise(res, res, *args)  # the eager run and the capture
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool_mib = (torch.cuda.memory_reserved() - r0) / 2**20
         got = dn.denoise(res, res, *args)
         torch.cuda.synchronize()
         if not torch.equal(got, eager):
@@ -1666,10 +1753,12 @@ def main():
             {"graph": lambda: dn.denoise(res, res, *args),
              "eager": lambda: dn.denoise_ops(res, res, *args)}, 5, True)
         out = {k: float(np.median(v)) for k, v in turns.items()}
+        out["capture_reserved_mib"] = pool_mib
         print(f"[dispatch] denoise {res}x{res} guided: (e) the graph replay "
               f"equals the eager denoiser bit for bit, no sync; "
               f"{out['graph']:.2f} ms by replay, {out['eager']:.2f} ms eager "
-              f"(CUDA events, median of 5 in turns)")
+              f"(CUDA events, median of 5 in turns); reserved memory the "
+              f"capture keeps {pool_mib:.0f} MiB")
         return out
 
     # ---- 3. kernel against its plain version -----------------------------
@@ -1800,7 +1889,7 @@ def main():
     print(f"[sweep] launches by variant over both scenes: "
           f"{ {str(k): v for k, v in sorted(sweep_launches.items())} }")
     phase_done("phase 16", t0)
-    del walk5
+    del ir5, walk5
 
     # ---- 17. sort_impl="counting" on the main path ---------------------------
     t0 = time.time()
@@ -1856,6 +1945,9 @@ def main():
     if srv["sync_counts"] != (10 * n_srv, 5 * n_srv):
         fail(f"server: the synchronous render made {srv['sync_counts']} "
              f"launches")
+    if srv["sync_profiled"] != (5, 5):
+        fail(f"server: the profiler saw {srv['sync_profiled']} (closest-hit, "
+             f"any-hit) launches in one replay of the synchronous render")
     if len(srv["streams"]) != 1 or srv["streams"][0] == srv["default_stream"]:
         fail(f"server: the render thread's launches went to streams "
              f"{srv['streams']}, not one stream of its own")
@@ -1872,9 +1964,16 @@ def main():
         fail("server: load_objs did not take the C++ tokenizer")
     print(f"[server] (f) {len(RELOAD_ALBEDOS)} scenes of other albedos "
           f"loaded over the wire one after the other: each equals "
-          f"Renderer.step({n_srv}) of it bit for bit; reserved memory after "
-          f"each render {[round(m) for m in srv['reload_reserved_mib']]} "
-          f"MiB (gate: a reload adds at most {RELOAD_SLACK_MIB} MiB)")
+          f"Renderer.step({n_srv}) of it bit for bit; after each, the "
+          f"denoise pass and the denoiser (guided and colour only) on a "
+          f"crop of another size "
+          f"{[(int(1024 * h), int(1024 * w)) for h, w in RELOAD_DENOISE_SHAPES]}"
+          f": reserved memory {[round(m) for m in srv['reload_reserved_mib']]}"
+          f" MiB (gate: a reload adds at most {RELOAD_SLACK_MIB} MiB), "
+          f"captured denoisers {srv['reload_denoisers']} (gate: one per set "
+          f"of guides); the synchronous render's graph, one replay under "
+          f"the profiler: {srv['sync_profiled']} (closest-hit, any-hit) "
+          f"launches")
     phase_done("phase 18", t0)
 
     # ---- 19. the host runtime and pixel sharding -------------------------
@@ -1921,12 +2020,18 @@ def main():
 
     # ---- 20. the compiled dispatch: CUDA graphs against eager ----------------
     t0 = time.time()
-    dispatch_numbers = {"main": dispatch_path("main", cfg, ir, 8),
-                        "config5": dispatch_path("config5", cfg5, ir5, 4)}
+    dispatch_numbers = {"main": dispatch_path("main", cfg, ir, 8)}
+    # Config 5 built again (dropped after phase 16, so that phases 17-19
+    # run without its IR and cached capture on the card).
+    _, config5_again, ir5 = textured_heightfield_scene(grid=708, res=1024,
+                                                       compat=False)
+    if config5_again.replace(max_bounces=5, compat=False) != cfg5:
+        fail("config 5 built again has another config")
+    dispatch_numbers["config5"] = dispatch_path("config5", cfg5, ir5, 4)
     del ir5
     ref = Renderer(cfg, ir)
     ref.step(4)
-    dispatch_numbers["denoise_ms"] = denoise_graph_check(ref.state)
+    dispatch_numbers["denoise"] = denoise_graph_check(ref.state)
     del ref
     phase_done("phase 20", t0)
 

@@ -51,39 +51,71 @@ def device_events(prof) -> list:
             and e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _report(prof, label: str, wall_ms: float, samples: int, top: int,
+def device_totals(profs) -> dict:
+    """{kernel name: [device us, calls]} summed over the profiled
+    spans."""
+    totals: dict = {}
+    for prof in profs:
+        for e in device_events(prof):
+            t = totals.setdefault(e.key, [0.0, 0])
+            t[0] += e.device_time_total
+            t[1] += e.count
+    return totals
+
+
+def busy_union_ms(prof) -> float:
+    """The profiled span's device busy time: the union of its device
+    events' intervals (so kernels that overlap count once)."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return busy_us / 1e3
+
+
+def _report(profs, label: str, wall_ms: float, samples: int, top: int,
             plain_ms: float) -> dict | None:
-    """Print one profiled span's device time per sample by group and by
-    kernel, and the device's busy share of the span's wall time per
-    sample, profiled (``wall_ms``) and unprofiled (``plain_ms``: the
-    profiler slows the host, not the card).  Returns the numbers
-    (device ms and kernels per sample, busy shares, ms by group), None
-    when the profiler recorded no device time."""
-    events = device_events(prof)
-    if not events:
+    """Print the profiled spans' device time per sample by group and by
+    kernel, and the device's busy share: the union of the device events'
+    intervals over the spans' wall time (``wall_ms`` per sample, under
+    the profiler).  Beside it, the device time over the unprofiled wall
+    time (``plain_ms``), a ratio: the profiler slows the host and may
+    lengthen kernels, so it can pass 100%.  Returns the numbers (device
+    ms and kernels per sample, the busy share, the ratio, ms by group),
+    None when the profiler recorded no device time."""
+    totals = device_totals(profs)
+    if not totals:
         print(f"{label}: the profiler recorded no device time: no breakdown")
         return None
-    total_us = sum(e.device_time_total for e in events) / samples
-    n_kernels = sum(e.count for e in events) / samples
-    busy = total_us / 1e3 / wall_ms
+    total_us = sum(us for us, _ in totals.values()) / samples
+    n_kernels = sum(n for _, n in totals.values()) / samples
+    busy = sum(busy_union_ms(p) for p in profs) / samples / wall_ms
+    ratio = total_us / 1e3 / plain_ms
     print(f"{label}: device time {total_us / 1e3:.2f} ms/sample in "
           f"{n_kernels:.0f} kernels/sample; busy {busy * 100:.1f}%, idle "
           f"{(1 - busy) * 100:.1f}% of the profiled wall time "
-          f"({wall_ms:.2f} ms/sample); {total_us / 10 / plain_ms:.1f}% of "
-          f"the unprofiled {plain_ms:.2f} ms/sample")
+          f"({wall_ms:.2f} ms/sample; busy = the union of the device "
+          f"events' intervals); device time / unprofiled wall time "
+          f"({plain_ms:.2f} ms/sample) {ratio * 100:.1f}%")
     groups: dict[str, float] = {}
-    for e in events:
-        g = _group(e.key)
-        groups[g] = groups.get(g, 0.0) + e.device_time_total / samples
+    for key, (us, _) in totals.items():
+        g = _group(key)
+        groups[g] = groups.get(g, 0.0) + us / samples
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:24s} {us / 1e3:8.3f} ms/sample "
               f"{us / total_us * 100:5.1f}%")
     print(f"top {top} kernels by device time (ms/sample, calls/sample):")
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
-        print(f"  {e.device_time_total / samples / 1e3:8.3f} "
-              f"{e.count / samples:6.0f}  {e.key[:90]}")
+    for key, (us, n) in sorted(totals.items(), key=lambda kv: -kv[1][0])[
+            :top]:
+        print(f"  {us / samples / 1e3:8.3f} {n / samples:6.0f}  {key[:90]}")
     return {"device_ms": total_us / 1e3, "kernels": n_kernels,
-            "busy_profiled": busy, "busy": total_us / 1e3 / plain_ms,
+            "busy": busy, "device_over_unprofiled": ratio,
             "ms_by_group": {g: us / 1e3 for g, us in groups.items()}}
 
 
@@ -138,20 +170,21 @@ def _profile_grad(config, ir, args) -> int:
         fwd, wall1 = timed(pass1)
     with profile(activities=acts) as prof2:
         _, wall2 = timed(pass2, fwd)
-    ok1 = _report(prof1, "pass 1 (forward, record)", wall1, n, args.top,
+    ok1 = _report([prof1], "pass 1 (forward, record)", wall1, n, args.top,
                   plain1)
-    ok2 = _report(prof2, "pass 2 (replay, forward + backward)", wall2, n,
+    ok2 = _report([prof2], "pass 2 (replay, forward + backward)", wall2, n,
                   args.top, plain2)
     return 0 if ok1 is not None and ok2 is not None else 1
 
 
-def profile_forward(config, ir, samples: int, top: int = 15,
-                    log=print) -> dict:
+def profile_forward(config, ir, samples: int, top: int = 15) -> dict:
     """``Renderer.step`` (graph replays) and the eager loop of
     ``render_sample`` from the same state, ``samples`` each after one
     warm-up step: unprofiled ms/sample in turns (eager, graph, graph,
-    eager), then each under the profiler, its busy share taken against
-    its faster unprofiled turn.  Returns {"graph": ..., "eager": ...}:
+    eager), then each under the profiler, one sample to a profiling
+    session (a session over several back-to-back replays loses device
+    records), reported by ``_report`` (the ratio against the faster
+    unprofiled turn).  Returns {"graph": ..., "eager": ...}:
     ``_report``'s numbers with the two unprofiled ms/sample, or None
     where the profiler recorded no device time."""
     import torch
@@ -164,36 +197,40 @@ def profile_forward(config, ir, samples: int, top: int = 15,
     renderer.step(1)  # the eager warm-up sample and the capture
     start = renderer.state
 
-    def graph():
+    def graph(n):
         renderer.state = start
-        renderer.step(samples)
+        renderer.step(n)
 
-    def eager():
+    def eager(n):
         st = start
         with torch.no_grad():
-            for _ in range(samples):
+            for _ in range(n):
                 st = render_sample(config, ir, st)
 
-    def wall(fn):
+    def wall(fn, n):
         torch.cuda.synchronize()
         t0 = time.time()
-        fn()
+        fn(n)
         torch.cuda.synchronize()
-        return (time.time() - t0) / samples * 1e3
+        return (time.time() - t0) / n * 1e3
 
     turns = {"eager": [], "graph": []}
     for name in ("eager", "graph", "graph", "eager"):
-        turns[name].append(wall(graph if name == "graph" else eager))
+        turns[name].append(wall(graph if name == "graph" else eager,
+                                samples))
     out = {}
     for name, fn, label in (
             ("graph", graph, "Renderer.step (graph replays)"),
             ("eager", eager, "eager render_sample loop")):
-        plain = sorted(turns[name])[0]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            prof_ms = wall(fn)
-        log(f"{label}: {turns[name]} ms/sample unprofiled, in turns")
-        res = _report(prof, label, prof_ms, samples, top, plain)
+        profs, prof_ms = [], 0.0
+        for _ in range(samples):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                prof_ms += wall(fn, 1) / samples
+            profs.append(prof)
+        print(f"{label}: {turns[name]} ms/sample unprofiled, in turns")
+        res = _report(profs, label, prof_ms, samples, top,
+                      sorted(turns[name])[0])
         out[name] = res and {**res, "ms_per_sample": turns[name]}
     return out
 

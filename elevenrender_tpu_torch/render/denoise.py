@@ -18,8 +18,9 @@ and elementwise math, and so does this port, op for op:
   frame with no lit pixel has floor 0.
 
 On a card ``denoise`` replays a CUDA graph, the counterpart of the JAX
-package's jitted filters: one capture per (device, H, W, guides given),
-made at the first call after that call's eager run, with the tap weights
+package's jitted filters: one capture per (device, guides given) at the
+last shape denoised with them, made at the first call at that shape
+after that call's eager run, with the tap weights
 (host floats) as constants of the capture.  Its inputs are copied into
 the graph's buffers and its result comes back as a fresh tensor; the
 filters make no host sync, so the capture holds every kernel.
@@ -38,7 +39,7 @@ import threading
 import numpy as np
 import torch
 
-from ..core.device import graph_capture
+from ..core.device import CapturedCall
 
 
 def _roll(x, dy: int, dx: int):
@@ -213,57 +214,34 @@ def denoise(width: int, height: int, raw, normal=None, albedo=None):
     raw = torch.as_tensor(raw)
     if not raw.is_cuda:
         return denoise_ops(width, height, raw, normal, albedo)
-    inputs = [raw.reshape(-1)] + [
-        None if x is None else torch.as_tensor(x, device=raw.device)
-        .reshape(-1) for x in (normal, albedo)]
-    key = (raw.device, height, width, normal is not None,
-           albedo is not None)
+    inputs = {"raw": raw.reshape(-1)}
+    for name, x in (("normal", normal), ("albedo", albedo)):
+        if x is not None:
+            inputs[name] = torch.as_tensor(x, device=raw.device).reshape(-1)
+    key = (raw.device, normal is not None, albedo is not None)
     with _graphs_lock:
-        graph = _graphs.get(key)
-        if graph is None:
-            graph = _graphs[key] = _DenoiseGraph(width, height)
-    return graph.run(inputs)
+        shape, call = _graphs.get(key, (None, None))
+        if shape != (height, width):
+            call = CapturedCall(raw.device)
+            _graphs[key] = ((height, width), call)
 
+    def run(st):
+        return denoise_ops(width, height, st["raw"], st.get("normal"),
+                           st.get("albedo"))
 
-class _DenoiseGraph:
-    """``denoise_ops`` at one shape and set of guides, captured on the
-    card: static input buffers (None for a guide not given), the graph
-    (with its pool) and its output.  Its first run is eager, then
-    captures.  Serialised as ``dispatch.SampleGraph`` is."""
-
-    def __init__(self, width, height):
-        self.width, self.height = width, height
-        self.inputs = self.out = self.graph = None
-        self._lock = threading.Lock()
-        self._done = None
-
-    def run(self, inputs):
-        with self._lock:
-            stream = torch.cuda.current_stream(inputs[0].device)
-            if self._done is not None:
-                stream.wait_event(self._done)
-            if self.graph is None:
-                res = denoise_ops(self.width, self.height, *inputs)
-                self.inputs = [None if x is None else x.clone()
-                               for x in inputs]
-                graph = torch.cuda.CUDAGraph()
-                with graph_capture(graph, inputs[0].device):
-                    self.out = denoise_ops(self.width, self.height,
-                                           *self.inputs)
-                self.graph = graph
-            else:
-                for buf, x in zip(self.inputs, inputs):
-                    if buf is not None:
-                        buf.copy_(x)
-                self.graph.replay()
-                res = self.out.clone()
-            self._done = torch.cuda.Event()
-            self._done.record(stream)
+    with call.turn():
+        call.load(inputs)
+        if call.graph is None:
+            res = call.warm_up(run)
+            call.capture(run)
             return res
+        return call.replay().clone()
 
 
-# (device, H, W, normal given, albedo given) -> _DenoiseGraph, for the
-# process's life: one entry per image size a session reads.
+# (device, normal given, albedo given) -> ((H, W), CapturedCall): the
+# last shape denoised with those guides.  A call at another shape
+# captures anew and drops the old graph and its pool, so the cache holds
+# at most one pool per set of guides, whatever sizes a session reads.
 _graphs: dict = {}
 _graphs_lock = threading.Lock()
 

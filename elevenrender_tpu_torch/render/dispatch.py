@@ -10,12 +10,13 @@ one launch, so the host no longer issues each kernel and can run ahead
 of the card.
 
 A ``SampleGraph`` serves one (config, IR, pixel count, pixel offset,
-device).  It holds:
+device).  It holds, through ``core.device.CapturedCall`` (the capture
+policy it shares with the denoiser):
 
 - ``state``, the static state buffers: the graph reads them and, by a
   copy at its end, writes the next state back into them, so one replay
   advances them by one sample in place;
-- ``graph`` and, inside it, its private memory pool (every intermediate
+- the graph and, inside it, its private memory pool (every intermediate
   of the sample, with the IR's and the buffers' addresses baked in);
 - ``counts``, the traversal launches its capture counted
   (``ops.traverse.deferred_counts``), which each replay adds to the
@@ -25,8 +26,8 @@ Its first run on a card is the warm-up: one eager sample, which builds
 and loads the kernel libraries, makes every one-time check that
 synchronises (the leaf-range check, the occupancy query) and uploads
 the shared constants, and then the capture of the next sample from that
-sample's result.  The capture runs through ``core.device.graph_capture``:
-one at a time, on a stream kept for captures, with
+sample's result.  The capture (``CapturedCall.capture``) runs one at a
+time, on a stream kept for captures, with
 ``capture_error_mode="thread_local"``, so a thread that reads back while
 another captures does not abort the capture.  A capture or a
 replay that fails raises; nothing falls back to eager execution.  On the
@@ -56,12 +57,11 @@ entry holds, since its graph reads them) go with it.
 from __future__ import annotations
 
 import threading
-import time
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from ..core.device import graph_capture, resolve_device
+from ..core.device import CapturedCall, resolve_device
 from ..ops import traverse as traverse_ops
 from . import shaders as shader_registry
 from .integrator import render_sample
@@ -77,97 +77,60 @@ def _device(device) -> torch.device:
 class SampleGraph:
     """One progressive sample of ``config`` over the pixels of the state
     it first runs, from ``pixel_offset``, on ``device``, captured as a
-    CUDA graph on a card.  ``held``: tensors to keep alive while the
-    graph may read them."""
+    CUDA graph on a card (``core.device.CapturedCall``: the state is its
+    static buffers, and the sample writes its result back into them).
+    ``held``: tensors to keep alive while the graph may read them."""
 
     def __init__(self, config, pixel_offset: int = 0, device="cuda",
                  held=()):
         self.config = config
         self.pixel_offset = pixel_offset
         self.device = _device(device)
-        self.state: dict | None = None
-        self.graph = None
         self.counts: dict | None = None
-        self.warmup_s = self.capture_s = None
-        self._cuda = self.device.type == "cuda"
+        self._call = CapturedCall(self.device)
         self._held = list(held)
-        self._lock = threading.Lock()
-        self._done = None
+
+    @property
+    def state(self) -> dict | None:
+        return self._call.static
+
+    @property
+    def warmup_s(self):
+        return self._call.warmup_s
+
+    @property
+    def capture_s(self):
+        return self._call.capture_s
 
     def run(self, ir, state: dict, n: int = 1, safe: bool = False) -> dict:
         """n samples from ``state``.  Returns the static buffers, or with
-        ``safe`` a copy of them.  Serialised: one caller at a time, and on
-        a card each run's work waits for the previous run's on the
-        stream it was enqueued on."""
+        ``safe`` a copy of them.  Serialised as ``CapturedCall.turn``
+        says."""
         if n < 1:
             return state
-        with self._lock, torch.no_grad():
-            stream = None
-            if self._cuda:
-                stream = torch.cuda.current_stream(self.device)
-                if self._done is not None:
-                    stream.wait_event(self._done)
-            if self._cuda and self.graph is None:
-                self._capture(ir, state)
-                n -= 1
-            else:
-                self._load(state)
-            for _ in range(n):
-                self._step(ir)
-            out = ({k: v.clone() for k, v in self.state.items()} if safe
-                   else dict(self.state))
-            if self._cuda:
-                for t in self.state.values():
-                    t.record_stream(stream)
-                self._done = torch.cuda.Event()
-                self._done.record(stream)
-            return out
+        call = self._call
 
-    def __del__(self):
-        # The graph and its pool go with this object: let its last replay
-        # finish first.
-        if self._done is not None:
-            self._done.synchronize()
-
-    def _load(self, state: dict) -> None:
-        if self.state is None:
-            self.state = {k: v.clone() for k, v in state.items()}
-            return
-        if state.keys() != self.state.keys():
-            raise ValueError(f"state has {sorted(state)}, the captured "
-                             f"sample {sorted(self.state)}")
-        for k, v in state.items():
-            if v is not self.state[k]:
-                self.state[k].copy_(v)
-
-    def _step(self, ir) -> None:
-        if self._cuda:
-            self.graph.replay()
-            traverse_ops.add_counts(self.counts)
-            return
-        out = render_sample(self.config, ir, self.state, self.pixel_offset,
-                            device=self.device)
-        for k, v in out.items():
-            self.state[k].copy_(v)
-
-    def _capture(self, ir, state: dict) -> None:
-        """The warm-up sample, eager, into fresh static buffers; then the
-        capture of the next sample, which writes them back in place."""
-        t0 = time.perf_counter()
-        warm = render_sample(self.config, ir, state, self.pixel_offset,
-                             device=self.device)
-        torch.cuda.synchronize(self.device)
-        self.warmup_s = time.perf_counter() - t0
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with traverse_ops.deferred_counts() as counts, \
-                graph_capture(graph, self.device):
-            out = render_sample(self.config, ir, warm, self.pixel_offset,
+        def sample(st):
+            out = render_sample(self.config, ir, st, self.pixel_offset,
                                 device=self.device)
             for k, v in out.items():
-                warm[k].copy_(v)
-        self.capture_s = time.perf_counter() - t0
-        self.state, self.graph, self.counts = warm, graph, counts
+                st[k].copy_(v)
+
+        with call.turn(), torch.no_grad():
+            call.load(state)
+            if call.cuda and call.graph is None:
+                call.warm_up(sample)
+                with traverse_ops.deferred_counts() as self.counts:
+                    call.capture(sample)
+                n -= 1
+            for _ in range(n):
+                if call.cuda:
+                    call.replay()
+                    traverse_ops.add_counts(self.counts)
+                else:
+                    sample(call.static)
+            return ({k: v.clone() for k, v in call.static.items()} if safe
+                    else dict(call.static))
 
 
 # Geometry tensor -> {key: SampleGraph}, held weakly (module docstring).
