@@ -49,33 +49,56 @@ result line is printed):
     noscan/skip probes, count_steps) against the plain version under the
     same flags: at 65,522 tris on 65,536 camera rays, 65,536 random rays
     (each closest-hit and any-hit) and the recorded bounce-1 and shadow
-    launches; at 999,698 tris on the random rays closest-hit and the two
-    recorded launches: ids equal, t bit-equal, the four per-ray counters
+    launches; at 999,698 tris on the random rays closest-hit and every
+    4th ray of the two recorded launches (262,144 and 524,288 rays): ids
+    equal, t bit-equal, the four per-ray counters
     equal; leaf_aabb is a pure cull; sign gives near's hits up to equal-t
     ties;
 12. the variants timed at both paths' recorded shapes beside the default
     kernel, their mean counters per ray, and each bound from the
     kernel's own counters; the noscan/skip probes keep the default's
     schedule and grid, so they split its time into walk and scans;
-13. the gradient path at 64x64, 5 bounces, 4 samples, card against CPU,
-    on the untextured and the textured, lit scene: loss and every
-    material gradient leaf; a replayed pass 2 equals a re-traced one
-    exactly and launches no traversal;
-14. the gradient path at full width: fwd_bwd_step_accum at 1024x1024, 5
-    bounces, 8 samples on the 65,522-tri scene (pass 1 records, pass 2
-    replays), its time, rays/s and peak memory; then one sample under
-    each other (order, leaf_aabb) variant: the same loss.
+13. the gradient path at 64x64, 5 bounces, card (by replay of its CUDA
+    graphs, render/grad.py) against CPU, on the untextured and the
+    textured, lit scene: fwd_bwd_step_accum over 4 samples, loss and
+    every material gradient leaf, a replayed pass 2 equal to a re-traced
+    one exactly and launching no traversal; render_loss_and_grad over 2
+    samples (one graph of the whole forward and backward): its replay
+    against its first call and against the CPU, 20 launches a replay;
+14. the gradient path at full width, in a process of its own (spawned;
+    it builds both scenes again), by replay of its graphs against the
+    eager loops of its two passes from the same inputs:
+    fwd_bwd_step_accum at 1024x1024, 5 bounces, 8 samples on the
+    65,522-tri scene, default RenderConfig (pass 1 records, pass 2
+    replays the records).  Gates: pass 1's state, loss and every record
+    bit-equal to eager; pass 2's gradients within 1e-5 of each leaf's
+    largest entry (an atomic order may move) and its final RNG state
+    bit-equal; the same for chunk = 1, 3 and 8 and for
+    cache_traces=False; 5 + 5 launches a pass-1 replay, 0 a pass-2 replay
+    and 5 + 5 a re-traced one, by the accounting and by the profiler (one
+    replay to a session); the albedo halved replays the same captures
+    and equals eager for those values; remat_bounces at 64x64 agrees.
+    Reported: warm-up and capture s of each pass, the reserved memory
+    each capture keeps, s per fwd+bwd and rays/s in turns (eager, graph,
+    graph, eager), each pass's ms/sample, busy share and device time over
+    the unprofiled wall (profile_step.profile_grad), peak memory; then 64
+    samples once by replay (bench.py's headline shape): s, rays/s, peak
+    memory; then 2 samples by replay under each other (order, leaf_aabb)
+    variant: the same loss; then config 5 (999,698 tris, textures, a point
+    light), 4 samples by replay: finite, non-zero gradients, the same
+    launch gates, s and peak memory;
 15. the frontier-K walk (csrc/bvh_frontier.cu, every K = 2..8,
     closest-hit and any-hit), the 8-wide walk (csrc/bvh_wide.cu; both
     one ray per lane tile, the warp's leaf scans pooled) and binary-v1
-    (closest-hit and any-hit) against their plain versions at 65,522 and
-    999,698 tris, on 65,536 camera rays, 65,536 random rays and a
+    (closest-hit and any-hit) against their plain versions on a
     65,536-ray strided subset of the recorded bounce-1 and shadow
-    launches, on the main path's full recorded launches (K = 2, 4, 8 and
-    the wide walk closest-hit, K = 4 any-hit), and on the random rays cut
-    to 65,535, 33, 31 and 1 (every K and the wide walk: the persistent
-    grid's hand-out): ids equal, t bit-equal, counters equal with and
-    without count_steps, the same deepest stack, no push refused;
+    launches at 65,522 and 999,698 tris; at 65,522 tris also on 65,536
+    camera rays, 65,536 random rays, the main path's full recorded
+    launches (K = 2, 4, 8 and the wide walk closest-hit, K = 4 any-hit),
+    and the random rays cut to 65,535, 33, 31 and 1 (every K and the wide
+    walk: the persistent grid's hand-out): ids equal, t bit-equal,
+    counters equal with and without count_steps, the same deepest stack,
+    no push refused;
 16. the traversal A/B sweep (elevenrender_tpu_torch/sweep_traverse.py) at
     full width, 1,048,576 rays per launch, on both scenes: coherent
     camera rays, those shuffled and Morton-sorted, and the recorded
@@ -131,10 +154,15 @@ result line is printed):
     every rank and each rank's ms/sample and peak memory (the 2 ranks
     share one card: no scaling is measured); the sharded loss and
     gradients at 64x64 on 2 ranks equal one process's within rtol 1e-5;
+    every rank's steps are graph replays (the forward step's per-rank
+    ms/sample beside the eager step's first measured, the sharded
+    gradient's ms a replay);
 20. the compiled dispatch (elevenrender_tpu_torch/render/dispatch.py), on
-    the main path (8 samples) and config 5 (4): (a) after a warm-up, one
-    eager sample under torch.cuda.set_sync_debug_mode("error"): no host
-    sync; (b) a fresh capture (its warm-up sample, capture time and the
+    the main path and config 5 (4 samples each): (a) after a warm-up, one
+    eager sample, and the gradient path's eager recording sample and
+    vector-Jacobian product (replaying the record and tracing again),
+    under torch.cuda.set_sync_debug_mode("error"): no host sync; (b) a
+    fresh capture (its warm-up sample, capture time and the
     reserved memory it leaves, beside an eager sample's transient peak),
     then n replays against n eager samples from the same state: passes,
     sample counts and RNG state equal bit for bit; (c) 5 closest-hit and
@@ -154,6 +182,8 @@ with the result: {"ok": true, "device": {...}}.
 """
 
 import json
+import multiprocessing as mp
+import queue
 import re
 import subprocess
 import sys
@@ -165,9 +195,16 @@ CONFIG5_TRIS = 999698
 # HBM3, 700.00 W): printed beside this run's set-up time for scale only,
 # never carried as a result of this run.
 CONFIG5_NUMPY_SETUP_S = 47.9
+# The sharded main path's eager step on 1 rank (NCCL), ms/sample, over
+# the runs that first measured it (chip_smoke.py phase 19, NVIDIA H100
+# 80GB HBM3, 700.00 W): printed beside this run's replays for scale only.
+SHARDED_EAGER_MS = "66.4-95.3"
 # Ray counts of phase 3's ragged checks: a tail of 31 after 2047 full runs
 # of 32, one run and a ray, less than a run, a single ray.
 RAGGED = (65535, 33, 31, 1)
+# The default variant key of the traversal's launch counts: (order,
+# leaf_aabb, leaf_mode, count_steps).
+DEFAULT = ("near", 0, "full", False)
 
 
 def fail(msg):
@@ -175,37 +212,49 @@ def fail(msg):
     sys.exit(1)
 
 
-def walk_launches(events):
-    """(closest-hit, any-hit) launches of the binary kernel among a
-    profiler's device events, by the kernel's name (demangled, or
-    mangled: bvh_traverse_walk<kAny, ...>)."""
-    got = [0, 0]
-    for e in events:
-        m = re.search(r"bvh_traverse_walk(?:<(true|false)|ILb([01])E)", e.key)
-        if m:
-            got[m.group(1) == "true" or m.group(2) == "1"] += e.count
-    return tuple(got)
+def render_variants():
+    """The (order, leaf_aabb) variants a render can ask for, the default
+    first."""
+    from elevenrender_tpu_torch.ops import traverse as tr
+    return [(o_, a_) for o_ in tr.ORDERS for a_ in (0, 1, 2)]
 
 
 def profiled_launches(fn, times=1):
     """(closest-hit, any-hit) launches of the binary kernel that the
-    profiler sees on the card over ``times`` calls of ``fn``, each to
-    the end of its work: measured, where the launch counters of a graph
-    replay repeat what its capture counted.  Each call is a profiling
+    profiler sees on the card in ``times`` calls of ``fn``, each to the
+    end of its work: measured, where the launch counters of a graph
+    replay repeat what its capture counted; with the number of calls
+    made and the device events of one call.  Each call is a profiling
     session of its own: a session over several back-to-back replays
-    loses device records (PERF.md, PR 9)."""
+    loses device records (PERF.md), and so, now and then, does a
+    session of one replay.  Every call replays the same graph,
+    so a session that saw fewer device events than the fullest lost
+    records: calls go on, up to ``times + 3``, until ``times`` sessions
+    (and one more call) saw the fullest count, and the launches are
+    those sessions'.  A launch that a replay lacks is lacking in every
+    session."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from elevenrender_tpu_torch import profile_step
-    got = (0, 0)
-    for _ in range(times):
+    sessions = []
+    while len(sessions) < times + 3:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        got = tuple(map(sum, zip(got, walk_launches(
-            profile_step.device_events(prof)))))
-    return got
+        events = profile_step.device_events(prof)
+        sessions.append((profile_step.walk_launches(events),
+                         sum(e.count for e in events)))
+        most = max(k for _, k in sessions)
+        full = [got for got, k in sessions if k == most]
+        if len(full) >= times and len(sessions) > times:
+            break
+    else:
+        fail(f"the profiler lost device records in "
+             f"{len(sessions) - len(full)} of {len(sessions)} sessions of "
+             f"one call each")
+    got = tuple(map(sum, zip(*full[:times])))
+    return got, len(sessions), most
 
 
 # The server phase's scene on the wire: the main path's camera and
@@ -241,7 +290,9 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
     launch counts, which the caller reads from the returned dict
     (``counts``: the traversal wrapper's counts over the 16 samples, a
     replay adding what its capture counted; ``streams``: the CUDA
-    streams the eager launches and the graph replays went to)."""
+    streams the eager launches and the graph replays went to;
+    ``warmup_streams``: those of the captures' eager warm-ups)."""
+    from elevenrender_tpu_torch.core import device as device_mod
     import gc
     import socket
     import threading
@@ -409,14 +460,18 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
         sync()
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
-        streams = set()
+        streams, warmup_streams = set(), set()
 
         def spy(tables, ray_o, *args, **kw):
             # A capture's launches go to the capture stream and run only
-            # on replay: the replay's stream is the one that counts.
+            # on replay: the replay's stream is the one that counts.  A
+            # capture's eager warm-up runs on the capture stream too
+            # (core.device.CapturedCall.warm_up), kept apart.
             if cuda and not torch.cuda.is_current_stream_capturing():
-                streams.add(torch.cuda.current_stream(ray_o.device)
-                            .cuda_stream)
+                stream = torch.cuda.current_stream(ray_o.device).cuda_stream
+                capture = device_mod._capture_streams.get(ray_o.device)
+                (warmup_streams if capture is not None
+                 and stream == capture.cuda_stream else streams).add(stream)
             return real_launch(tables, ray_o, *args, **kw)
 
         def replay_spy(graph):
@@ -453,6 +508,7 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
         out["counts"] = (tr.launches, tr.any_hit_launches,
                          dict(tr.variant_launches))
         out["streams"] = sorted(streams)
+        out["warmup_streams"] = sorted(warmup_streams)
         out["default_stream"] = (torch.cuda.default_stream(dev).cuda_stream
                                  if cuda else None)
         out["render_s"] = t_done - t_render
@@ -547,7 +603,7 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
             # One more replay of the synchronous render's graph (the same
             # config and scene as the server's), its launches counted by
             # the profiler.
-            out["sync_profiled"] = profiled_launches(lambda: ref.step(1))
+            out["sync_profiled"] = profiled_launches(lambda: ref.step(1))[0]
         del ref, rir
 
         # (e) pause, resume and abort on a longer target (a new config:
@@ -680,7 +736,8 @@ def sharded_path(grid=182, res=1024, spp=4, grad_res=64, grad_spp=2,
     render = {"kind": "render", "scene": "heightfield", "grid": grid,
               "res": res, "bounces": 5, "samples": spp, "warmup": True}
     grad = {"kind": "grad", "scene": "heightfield", "grid": grid,
-            "res": grad_res, "bounces": 5, "samples": grad_spp}
+            "res": grad_res, "bounces": 5, "samples": grad_spp,
+            "warmup": True}
     cuda = device != "cpu"
     out = {}
     for label, world, backend, tasks in (
@@ -724,8 +781,429 @@ def sharded_path(grid=182, res=1024, spp=4, grad_res=64, grad_spp=2,
             out[label]["grad"] = {"res": grad_res, "samples": grad_spp,
                                   "loss": loss, "loss_alone": alone["loss"],
                                   "loss_rel_diff": rel,
-                                  "grad_max_diff_over_leaf_max": worst}
+                                  "grad_max_diff_over_leaf_max": worst,
+                                  "ms_per_rank": [r[1]["ms"] for r in ranks],
+                                  "ms_alone": alone["ms"]}
     return out
+
+
+def make_target(cfg, ir_, device):
+    """A target [npix, 3]: one sample's beauty pass x 1.5 + 0.1."""
+    import torch
+
+    from elevenrender_tpu_torch.render import integrator
+    with torch.no_grad():
+        st = integrator.render_sample(
+            cfg, ir_, integrator.init_state(cfg, device), device=device)
+    return st["passes"][integrator.BEAUTY, :, :3] * 1.5 + 0.1
+
+
+def drop_captures(ir_, cfg_=None):
+    """Free the captures (and parameter buffers) cached for ``ir_``,
+    or only those of ``cfg_``, with their pools."""
+    import gc
+
+    import torch
+
+    from elevenrender_tpu_torch.render import dispatch
+    entries = dispatch._graphs.get(ir_["tris"]["verts"], {})
+    for key in [k for k in entries if cfg_ is None or cfg_ in k[0]]:
+        del entries[key]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def grad_gap(got, want):
+    """The largest |got - want| over the material leaves, each over
+    its leaf's largest entry."""
+    worst = 0.0
+    for k, v in want["materials"].items():
+        scale = max(float(v.abs().max()), 1e-30)
+        worst = max(worst, float((got["materials"][k] - v).abs().max())
+                    / scale)
+    return worst
+
+
+def same_pass1(label, got, want):
+    """Pass 1 by replay against the eager loop: loss, state and every
+    recorded trace bit-equal."""
+    import torch
+    loss_, caches_, state_ = got
+    e_loss_, e_caches_, e_state_ = want
+    if float(loss_) != float(e_loss_):
+        fail(f"{label}: pass 1's loss {float(loss_)} by replay, "
+             f"{float(e_loss_)} eager")
+    for k in ("passes", "samples", "rng"):
+        if not torch.equal(state_[k], e_state_[k]):
+            fail(f"{label}: pass 1's {k} by replay differs from eager")
+    for k in e_caches_[0]:
+        if not torch.equal(torch.cat([c[k] for c in caches_]),
+                           torch.stack([c[k] for c in e_caches_])):
+            fail(f"{label}: pass 1's recorded {k} by replay differs "
+                 f"from eager")
+
+
+def gradient_at_full_width(cfg, ir_, launch_log):
+    """Phase 14 on the main path: fwd_bwd_step_accum at full width,
+    8 samples, default RenderConfig (material_fetch="mm_bwd", pass 2
+    replaying pass 1's records), by graph replay against the eager
+    loops of its passes; see the module docstring.  Appends (label,
+    expected, counted) launches by variant to ``launch_log``.  Returns
+    (its numbers, {(order, leaf_aabb): (closest-hit, any-hit) launches
+    of the graph runs})."""
+    import torch
+
+    from elevenrender_tpu_torch import profile_step
+    from elevenrender_tpu_torch.ops import traverse as tr
+    from elevenrender_tpu_torch.render import dispatch
+    from elevenrender_tpu_torch.render import grad as grad_mod
+    from elevenrender_tpu_torch.render import integrator
+
+    n = 8
+    res = cfg.x_res
+    if cfg.material_fetch != "mm_bwd" or cfg.remat_bounces:
+        fail("the gradient path is to run the default RenderConfig")
+    target = make_target(cfg, ir_, "cuda")
+    dev = target.device
+    params = {"materials": grad_mod.float_subtree(ir_["materials"])}
+    rays = 2 * cfg.max_bounces * res * res
+    out = {"samples": n}
+    # (a) The eager loops, the reference, from the same inputs.
+    torch.cuda.reset_peak_memory_stats()
+    (e_loss, e_seed, e_caches, e_state), _ = profile_step.wall(
+        grad_mod._accum_fwd, cfg, ir_, params, target, n, True, dev)
+    (e_grads, e_rng), _ = profile_step.wall(
+        grad_mod._accum_bwd, cfg, ir_, params, e_seed, e_caches, n, dev)
+    out["eager_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    # (b) The graph form's first call, pass by pass: each pass's
+    # warm-up and capture, and the reserved memory it keeps.
+    drop_captures(ir_)
+    r0 = torch.cuda.memory_reserved()
+    buffers = grad_mod.static_params(ir_, params, dev)
+    merged = grad_mod._merge(ir_, buffers)
+    tr.reset_counts()
+    (loss, seed, caches, state), _ = profile_step.wall(
+        grad_mod._accum_fwd_chunked, cfg, merged, target, n, n, True,
+        dev)
+    counted1 = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
+    variants1 = dict(tr.variant_launches)
+    torch.cuda.empty_cache()
+    r1 = torch.cuda.memory_reserved()
+    same_pass1("gradient path", (loss, caches, state),
+               (e_loss, e_caches, e_state))
+    tr.reset_counts()
+    (grads, rng), _ = profile_step.wall(
+        grad_mod._accum_bwd_chunked, cfg, ir_, buffers, seed, caches, n, n,
+        dev)
+    counted2 = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
+    torch.cuda.empty_cache()
+    r2 = torch.cuda.memory_reserved()
+    record_mib = sum(v.numel() * v.element_size() for c in caches
+                     for v in c.values()) / 2**20
+    p1 = dispatch.sample_graph(cfg, merged, res * res, 0, dev,
+                               record=True)
+    (vjp,) = [e for e in dispatch._graphs[ir_["tris"]["verts"]].values()
+              if isinstance(e, grad_mod._VjpCall)]
+    out.update(
+        warmup_s={"pass1": p1.warmup_s, "pass2": vjp.warmup_s},
+        capture_s={"pass1": p1.capture_s, "pass2": vjp.capture_s},
+        reserved_after_pass1_mib=(r1 - r0) / 2**20,
+        record_mib=record_mib,
+        reserved_by_pass2_mib=(r2 - r1) / 2**20,
+        first_gap=grad_gap(grads, e_grads))
+    if not torch.equal(rng, e_rng):
+        fail("gradient path: pass 2's final RNG state by replay differs "
+             "from eager")
+    if not out["first_gap"] <= 1e-5:
+        fail(f"gradient path: pass 2 by replay differs from eager by "
+             f"{out['first_gap']:.3g} of a leaf's largest entry")
+    # (c) chunk = 1, 3, 8: the same captures, the same results.
+    out["chunk_gap"] = {}
+    for chunk in (1, 3, 8):
+        tr.reset_counts()
+        c_loss, _, c_caches, c_state = grad_mod._accum_fwd_chunked(
+            cfg, merged, target, n, chunk, True, dev)
+        same_pass1(f"gradient path, chunk={chunk}",
+                   (c_loss, c_caches, c_state),
+                   (e_loss, e_caches, e_state))
+        c_grads, c_rng = grad_mod._accum_bwd_chunked(
+            cfg, ir_, buffers, seed, c_caches, n, chunk, dev)
+        torch.cuda.synchronize()
+        if (tr.launches, tr.any_hit_launches) != (10 * n, 5 * n):
+            fail(f"gradient path, chunk={chunk}: {tr.launches} launches")
+        out["chunk_gap"][chunk] = grad_gap(c_grads, e_grads)
+        if not (torch.equal(c_rng, e_rng)
+                and out["chunk_gap"][chunk] <= 1e-5):
+            fail(f"gradient path, chunk={chunk}: RNG or gradients "
+                 f"differ from eager's")
+    # (d) launches: the accounting above and the profiler, one
+    # replay to a profiling session.
+    prof1 = profiled_launches(lambda: grad_mod._accum_fwd_chunk_record(
+        cfg, merged, state, 1, dev))[0]
+    cache0 = {k: v[:1] for k, v in caches[0].items()}
+    prof2 = profiled_launches(lambda: grad_mod._accum_bwd_chunk(
+        cfg, ir_, buffers, seed, rng, 1, cache0, dev))[0]
+    # (e) cache_traces=False: pass 2 traces every sample again.
+    tr.reset_counts()
+    r_loss, r_grads = grad_mod.render_loss_and_grad_accum(
+        cfg, ir_, params, target, n, cache_traces=False)
+    torch.cuda.synchronize()
+    counted_rt = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
+    prof_rt = profiled_launches(lambda: grad_mod._accum_bwd_chunk(
+        cfg, ir_, buffers, seed, rng, 1, None, dev))[0]
+    out["retrace_gap"] = grad_gap(r_grads, e_grads)
+    if float(r_loss) != float(e_loss) or not out["retrace_gap"] <= 1e-5:
+        fail(f"gradient path, cache_traces=False: loss {float(r_loss)} "
+             f"(eager {float(e_loss)}), gradients differ by "
+             f"{out['retrace_gap']:.3g}")
+    out["launches_per_replay"] = {"pass1": prof1, "pass2": prof2,
+                                  "pass2_retrace": prof_rt}
+    out["launches_counted"] = {"pass1": counted1, "pass2": counted2,
+                               "retrace": counted_rt}
+    if (counted1 != (5 * n, 5 * n) or counted2 != (0, 0)
+            or counted_rt != (10 * n, 10 * n) or prof1 != (5, 5)
+            or prof2 != (0, 0) or prof_rt != (5, 5)):
+        fail(f"gradient path: launches (closest-hit, any-hit) counted "
+             f"{out['launches_counted']}, profiled per replay "
+             f"{out['launches_per_replay']}; expected 5 + 5 a pass-1 "
+             f"replay, 0 a pass-2 replay, 5 + 5 a re-traced one")
+    # (f) New parameter values (the albedo halved): no new capture,
+    # eager's result for those values.
+    anchor = ir_["tris"]["verts"]
+    before = {k: (e, getattr(getattr(e, "_call", e), "graph", None))
+              for k, e in dispatch._graphs[anchor].items()}
+    half = {"materials": {k: (v * 0.5 if k == "albedo" else v.clone())
+                          for k, v in params["materials"].items()}}
+    h_loss, h_grads = grad_mod.render_loss_and_grad_accum(
+        cfg, ir_, half, target, n)
+    after = {k: (e, getattr(getattr(e, "_call", e), "graph", None))
+             for k, e in dispatch._graphs[anchor].items()}
+    he_loss, he_seed, he_caches, _ = grad_mod._accum_fwd(
+        cfg, ir_, half, target, n, True, dev)
+    he_grads, _ = grad_mod._accum_bwd(cfg, ir_, half, he_seed, he_caches,
+                                      n, dev)
+    del he_caches
+    out["new_values_gap"] = grad_gap(h_grads, he_grads)
+    if (after.keys() != before.keys()
+            or any(after[k][0] is not v[0] or after[k][1] is not v[1]
+                   for k, v in before.items())):
+        fail("gradient path: new parameter values made a new capture")
+    if (float(h_loss) != float(he_loss) or float(h_loss) == float(e_loss)
+            or not out["new_values_gap"] <= 1e-5):
+        fail(f"gradient path: the halved albedo's loss {float(h_loss)} "
+             f"(eager {float(he_loss)}) or gradients (gap "
+             f"{out['new_values_gap']:.3g}) differ")
+    del caches, e_caches, seed, state, cache0
+    # (g) s per fwd+bwd in turns, each pass's ms/sample and busy.
+    prof = profile_step.profile_grad(cfg, ir_, n, top=8)
+    for name in ("graph", "eager"):
+        for part in ("pass1", "pass2"):
+            if prof[name][part] is None:
+                fail(f"gradient path: the profiler recorded no device "
+                     f"time for the {name} {part}")
+    out["turns"] = prof
+    # (h) 64 samples, bench.py's headline shape, once by replay.
+    torch.cuda.reset_peak_memory_stats()
+    (loss64, grads64), s64 = profile_step.wall(
+        grad_mod.fwd_bwd_step_accum, cfg, ir_, target, 64)
+    out["n64"] = {"s": s64, "rays_per_s": rays * 64 / s64,
+                  "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                  "reserved_mib": torch.cuda.memory_reserved() / 2**20,
+                  "loss": float(loss64)}
+    if not (all(bool(torch.isfinite(v).all())
+                for v in grads64["materials"].values())
+            and float(grads64["materials"]["albedo"].abs().sum()) > 0):
+        fail("gradient path, 64 samples: gradients not finite and "
+             "non-zero")
+    del grads64
+    g, e = prof["graph"], prof["eager"]
+    print(f"[gradient] fwd_bwd_step_accum {res}x{res}, "
+          f"{cfg.max_bounces} bounces, {n} samples, material_fetch="
+          f"{cfg.material_fetch}, by graph replay: pass 1 state, loss and "
+          f"every record bit-equal to the eager loop's; pass 2 "
+          f"gradients within {out['first_gap']:.3g} of a leaf's largest "
+          f"entry (chunk 1 / 3 / 8: {out['chunk_gap']}), the final RNG "
+          f"bit-equal; cache_traces=False within "
+          f"{out['retrace_gap']:.3g}; launches (closest-hit, any-hit) "
+          f"counted {out['launches_counted']}, profiled per replay "
+          f"{out['launches_per_replay']}")
+    print(f"[gradient] s per fwd+bwd in turns (eager, graph, graph, "
+          f"eager): graph {[round(x, 4) for x in g['s']]}, eager "
+          f"{[round(x, 4) for x in e['s']]}; rays/s "
+          f"{rays * n / min(g['s']):.4g} by replay, "
+          f"{rays * n / min(e['s']):.4g} eager; ms/sample pass 1 "
+          f"{g['pass1']['ms_per_sample']:.1f} / "
+          f"{e['pass1']['ms_per_sample']:.1f} eager, pass 2 "
+          f"{g['pass2']['ms_per_sample']:.1f} / "
+          f"{e['pass2']['ms_per_sample']:.1f}; busy pass 1 "
+          f"{g['pass1']['busy'] * 100:.1f}% / "
+          f"{e['pass1']['busy'] * 100:.1f}%, pass 2 "
+          f"{g['pass2']['busy'] * 100:.1f}% / "
+          f"{e['pass2']['busy'] * 100:.1f}%; device over unprofiled "
+          f"wall pass 1 {g['pass1']['device_over_unprofiled'] * 100:.1f}"
+          f"% / {e['pass1']['device_over_unprofiled'] * 100:.1f}%, pass "
+          f"2 {g['pass2']['device_over_unprofiled'] * 100:.1f}% / "
+          f"{e['pass2']['device_over_unprofiled'] * 100:.1f}%")
+    print(f"[gradient] warm-up s {out['warmup_s']}, capture s "
+          f"{out['capture_s']}; reserved after pass 1's capture +"
+          f"{out['reserved_after_pass1_mib']:.0f} MiB (its records "
+          f"{record_mib:.0f} MiB), by pass 2's +"
+          f"{out['reserved_by_pass2_mib']:.0f} MiB; peak allocated "
+          f"{prof['peak_mib']:.0f} MiB by replay, "
+          f"{out['eager_peak_mib']:.0f} eager; the halved albedo "
+          f"replayed the same captures, within "
+          f"{out['new_values_gap']:.3g} of eager's")
+    print(f"[gradient] 64 samples by replay: {s64:.3f} s per fwd+bwd, "
+          f"{out['n64']['rays_per_s']:.4g} rays/s, peak allocated "
+          f"{out['n64']['peak_mib']:.0f} MiB, reserved "
+          f"{out['n64']['reserved_mib']:.0f} MiB, loss "
+          f"{out['n64']['loss']:.8f}")
+    launches = {("near", 0): counted1}
+    launch_log.append(("gradient path", {DEFAULT: 10 * n}, variants1))
+    # (i) Every other (order, leaf_aabb) variant, 2 samples by replay,
+    # its captures freed after it.
+    nv = 2
+    base_loss, base_grads = grad_mod.fwd_bwd_step_accum(cfg, ir_, target,
+                                                        nv)
+    for order, leaf_aabb in render_variants()[1:]:
+        cfg_v = cfg.replace(trace_order=order, leaf_aabb=leaf_aabb)
+        grad_mod.fwd_bwd_step_accum(cfg_v, ir_, target, nv)  # capture
+        tr.reset_counts()
+        v_loss, v_grads = grad_mod.fwd_bwd_step_accum(cfg_v, ir_, target,
+                                                      nv)
+        torch.cuda.synchronize()
+        key = (order, leaf_aabb, "full", False)
+        launch_log.append((f"gradient path under {key}", {key: 10 * nv},
+                           dict(tr.variant_launches)))
+        launches[(order, leaf_aabb)] = (
+            tr.launches - tr.any_hit_launches, tr.any_hit_launches)
+        drop_captures(ir_, cfg_v)
+        # Same hits but for equal-t ties: the loss to 1e-4 relative,
+        # the albedo gradient to 1e-4 of its largest entry.
+        rel = abs(float(v_loss) - float(base_loss)) / float(base_loss)
+        if not rel <= 1e-4:
+            fail(f"gradient path under {key}: loss differs by {rel:.3g}")
+        base_albedo = base_grads["materials"]["albedo"]
+        gap = float((v_grads["materials"]["albedo"]
+                     - base_albedo).abs().max())
+        if not gap <= 1e-4 * float(base_albedo.abs().max()):
+            fail(f"gradient path under {key}: albedo gradient differs "
+                 f"by {gap:.3g}")
+        print(f"[gradient] trace_order={order} leaf_aabb={leaf_aabb}, "
+              f"{nv} samples by replay: loss {float(v_loss):.8f} "
+              f"(default {float(base_loss):.8f}), albedo gradient "
+              f"differs by {gap:.3g}; {10 * nv} launches of this variant")
+    # (j) remat_bounces at 64x64, 4 samples, by replay.
+    cfg64 = cfg.replace(x_res=64, y_res=64)
+    t64 = make_target(cfg64, ir_, "cuda")
+    got = {}
+    for remat in (False, True):
+        c_ = cfg64.replace(remat_bounces=remat)
+        grad_mod.fwd_bwd_step_accum(c_, ir_, t64, 4)  # capture
+        got[remat] = grad_mod.fwd_bwd_step_accum(c_, ir_, t64, 4)
+    out["remat_gap"] = grad_gap(got[True][1], got[False][1])
+    if (float(got[True][0]) != float(got[False][0])
+            or not out["remat_gap"] <= 1e-5):
+        fail(f"gradient path, remat_bounces at 64x64: loss "
+             f"{float(got[True][0])} against {float(got[False][0])}, "
+             f"gradients differ by {out['remat_gap']:.3g}")
+    print(f"[gradient] remat_bounces=True at 64x64, 4 samples by replay: "
+          f"the same loss, gradients within {out['remat_gap']:.3g}")
+    drop_captures(ir_)
+    return out, launches
+
+
+def config5_gradient(cfg5, ir5, launch_log):
+    """Phase 14, config 5: fwd_bwd_step_accum at 999,698 tris, 1024x1024,
+    4 samples, by replay after a first call that captures: finite,
+    non-zero gradients, 5 + 5 launches a pass-1 replay and 0 a pass-2
+    replay by the accounting and the profiler; its s and peak memory.
+    Appends its launches by variant to ``launch_log``."""
+    import torch
+
+    from elevenrender_tpu_torch import profile_step
+    from elevenrender_tpu_torch.ops import traverse as tr
+    from elevenrender_tpu_torch.render import dispatch
+    from elevenrender_tpu_torch.render import grad as grad_mod
+    from elevenrender_tpu_torch.render import integrator
+
+    n = 4
+    res = cfg5.x_res
+    target = make_target(cfg5, ir5, "cuda")
+    dev = target.device
+    (_, _), first_s = profile_step.wall(
+        grad_mod.fwd_bwd_step_accum, cfg5, ir5, target, n)
+    torch.cuda.reset_peak_memory_stats()
+    tr.reset_counts()
+    (loss, grads), s = profile_step.wall(
+        grad_mod.fwd_bwd_step_accum, cfg5, ir5, target, n)
+    counted = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
+    variants = dict(tr.variant_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    params = {"materials": grad_mod.float_subtree(ir5["materials"])}
+    buffers = grad_mod.static_params(ir5, params, dev)
+    merged = grad_mod._merge(ir5, buffers)
+    _, seed, caches, state = grad_mod._accum_fwd_chunked(
+        cfg5, merged, target, 1, 8, True, dev)
+    prof1 = profiled_launches(lambda: grad_mod._accum_fwd_chunk_record(
+        cfg5, merged, state, 1, dev))[0]
+    rng = integrator.init_state(cfg5, dev)["rng"]
+    prof2 = profiled_launches(lambda: grad_mod._accum_bwd_chunk(
+        cfg5, ir5, buffers, seed, rng, 1, caches[0], dev))[0]
+    g = grads["materials"]
+    finite = all(bool(torch.isfinite(v).all()) for v in g.values())
+    nonzero = [k for k, v in g.items() if float(v.abs().sum()) > 0]
+    out = {"samples": n, "first_s": first_s, "s": s,
+           "rays_per_s": 2 * cfg5.max_bounces * res * res * n / s,
+           "peak_mib": peak, "loss": float(loss),
+           "launches_counted": counted,
+           "launches_per_replay": {"pass1": prof1, "pass2": prof2},
+           "nonzero_leaves": nonzero}
+    print(f"[gradient] config 5 ({ir5['tris']['verts'].shape[0]} tris, "
+          f"textures, a point light) fwd_bwd_step_accum {res}x{res}, "
+          f"{n} samples by replay: {s:.3f} s per fwd+bwd "
+          f"({out['rays_per_s']:.4g} rays/s; the first call, with its "
+          f"warm-ups and captures, {first_s:.3f} s), peak allocated "
+          f"{peak:.0f} MiB, loss {float(loss):.8f}, finite {finite}, "
+          f"non-zero leaves {nonzero}; launches (closest-hit, any-hit) "
+          f"counted {counted}, profiled per replay pass 1 {prof1}, pass "
+          f"2 {prof2}")
+    if not (finite and nonzero and bool(torch.isfinite(loss))):
+        fail("config 5 gradient: not finite and non-zero")
+    if counted != (5 * n, 5 * n) or prof1 != (5, 5) or prof2 != (0, 0):
+        fail(f"config 5 gradient: launches counted {counted}, profiled "
+             f"{prof1} / {prof2} per replay")
+    launch_log.append(("config 5 gradient", {DEFAULT: 10 * n}, variants))
+    drop_captures(ir5)
+    return out
+
+
+def gradient_phase(results):
+    """Phase 14 in a process of its own (``main`` spawns it): the main
+    path's and config 5's scenes built here, ``gradient_at_full_width``
+    and ``config5_gradient``; puts ("ok", (numbers, launches by variant
+    key, the launch log)) or ("error", the traceback) on ``results``."""
+    import traceback
+
+    try:
+        from elevenrender_tpu_torch import kernels
+        from elevenrender_tpu_torch.scene.demo import (
+            heightfield_scene, textured_heightfield_scene)
+        kernels.build_all()
+        _, config, ir = heightfield_scene(grid=182, res=1024, compat=False)
+        launch_log = []
+        numbers, launches = gradient_at_full_width(
+            config.replace(max_bounces=5, compat=False), ir, launch_log)
+        del ir
+        _, config5, ir5 = textured_heightfield_scene(grid=708, res=1024,
+                                                     compat=False)
+        numbers["config5"] = config5_gradient(
+            config5.replace(max_bounces=5, compat=False), ir5, launch_log)
+        results.put(("ok", (numbers, launches, launch_log)))
+    except BaseException:
+        results.put(("error", traceback.format_exc()))
+        raise
 
 
 def main():
@@ -736,8 +1214,6 @@ def main():
     import numpy as np
 
     import gc
-
-    from torch.profiler import ProfilerActivity, profile
 
     from elevenrender_tpu_torch import kernels, profile_step
     from elevenrender_tpu_torch import sweep_traverse as sweep
@@ -817,7 +1293,6 @@ def main():
     # summed over the driven paths (phases 4, 8 and 14): each adds what
     # the wrapper counted between its own reset and its end.
     path_launches = {}
-    DEFAULT = ("near", 0, "full", False)
 
     def add_path_launches(label, expected, counted=None):
         """``counted``: the wrapper's launches by variant, read by the
@@ -955,7 +1430,8 @@ def main():
         add_path_launches(label, {DEFAULT: 10 * n_timed})
         closest = launches - any_hit
         tr.reset_counts()
-        profiled = profiled_launches(lambda: renderer.step(1), n_timed)
+        profiled, calls, _ = profiled_launches(lambda: renderer.step(1),
+                                               n_timed)
         again = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
         rays_per_sample = 2 * cfg.max_bounces * res * res
         beauty = renderer.get_pass("beauty").reshape(res, res, 4)[..., :3]
@@ -966,13 +1442,15 @@ def main():
               f"closest, {any_hit} any-hit over {n_timed} samples by the "
               f"counters); the profiler's kernel names over {n_timed} more "
               f"replays: {profiled[0]} closest, {profiled[1]} any-hit "
-              f"(counters {again[0]}, {again[1]}); peak "
+              f"(counters {again[0]}, {again[1]} over the {calls} "
+              f"profiled replays); peak "
               f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
         print(f"[{label}] beauty mean {float(beauty.mean()):.5f}, finite "
               f"{bool(np.isfinite(beauty).all())}, samples "
               f"{renderer.get_render_info()['samples']}")
         want = (5 * n_timed, 5 * n_timed)
-        if (closest, any_hit) != want or profiled != want or again != want:
+        if ((closest, any_hit) != want or profiled != want
+                or again != (5 * calls, 5 * calls)):
             fail(f"{label}: expected 5 closest-hit and 5 any-hit launches "
                  f"per sample, counted {closest}, {any_hit}, profiled "
                  f"{profiled} over {n_timed} samples")
@@ -1075,7 +1553,7 @@ def main():
                   f"{b['bound_ms'] / ms * 100:.1f}% of bound")
         return timing, shapes
 
-    RENDER_VARIANTS = [(o_, a_) for o_ in tr.ORDERS for a_ in (0, 1, 2)]
+    RENDER_VARIANTS = render_variants()
 
     def check_variants(label, tables, depth, rays, recorded, only=None):
         """Every variant against the plain version under the same flags:
@@ -1217,12 +1695,6 @@ def main():
                          if leaf_mode != "full" else ""))
         return out
 
-    def make_target(cfg, ir_, device):
-        with torch.no_grad():
-            st = integrator.render_sample(
-                cfg, ir_, integrator.init_state(cfg, device), device=device)
-        return st["passes"][integrator.BEAUTY, :, :3] * 1.5 + 0.1
-
     def grad_card_vs_cpu(label, cfg, ir_):
         """fwd_bwd_step_accum, 4 samples, on the card and on the CPU:
         loss within rtol 1e-4, every material gradient leaf within rtol
@@ -1286,109 +1758,57 @@ def main():
             if scale > 0:
                 worst = max(worst, gap / scale)
         print(f"[grad parity] {label} {cfg.x_res}x{cfg.y_res}, "
-              f"{cfg.max_bounces} bounces, {n} samples: loss {loss_c:.8f} "
+              f"{cfg.max_bounces} bounces, {n} samples, by graph replay on "
+              f"the card: loss {loss_c:.8f} "
               f"card / {loss_h:.8f} CPU; {len(res['cpu'][1]['materials'])} "
               f"material leaves ({nonzero} non-zero), worst |card - CPU| "
               f"{worst:.3g} of a leaf's largest entry; replay == re-trace "
               f"exactly; launches {replay_launches} with replay, "
               f"{retrace_launches} re-traced, {replayed_sample_launches} in "
               f"a replayed sample")
-
-    def gradient_at_full_width(cfg, ir_):
-        """fwd_bwd_step_accum at the main path's width, 8 samples, default
-        RenderConfig (material_fetch="mm_bwd", replayed pass 2); then the
-        accumulator's two passes again, each timed alone; then one sample
-        under every other (order, leaf_aabb) variant.  Returns
-        {(order, leaf_aabb): (closest-hit, any-hit) launches}."""
-        n = 8
-        res = cfg.x_res
-        if cfg.material_fetch != "mm_bwd" or cfg.remat_bounces:
-            fail("the gradient path is to run the default RenderConfig")
-        target = make_target(cfg, ir_, "cuda")
-        grad_mod.fwd_bwd_step_accum(cfg, ir_, target, 1)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        tr.reset_counts()
-        t0 = time.time()
-        loss, grads = grad_mod.fwd_bwd_step_accum(cfg, ir_, target, n)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        add_path_launches("gradient path", {DEFAULT: 10 * n})
-        total, any_hit = tr.launches, tr.any_hit_launches
-        launches = {("near", 0): (total - any_hit, any_hit)}
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        g = grads["materials"]
-        finite = all(bool(torch.isfinite(v).all()) for v in g.values())
-        rays = 2 * cfg.max_bounces * res * res * n
-        # The accumulator's own two passes, each timed alone.
-        params = {"materials": grad_mod.float_subtree(ir_["materials"])}
-        dev = target.device
-        tr.reset_counts()
-        t0 = time.time()
-        _, seed, caches = grad_mod._accum_fwd(cfg, ir_, params, target, n,
-                                              True, dev)
-        torch.cuda.synchronize()
-        pass1 = time.time() - t0
-        pass1_launches = tr.launches
-        t0 = time.time()
-        again = grad_mod._accum_bwd(cfg, ir_, params, seed, caches, n, dev)
-        torch.cuda.synchronize()
-        pass2 = time.time() - t0
-        pass2_launches = tr.launches - pass1_launches
-        del seed, caches
-        print(f"[gradient] fwd_bwd_step_accum {res}x{res}, "
-              f"{cfg.max_bounces} bounces, {n} samples, material_fetch="
-              f"{cfg.material_fetch}: {dt:.3f} s per fwd+bwd, "
-              f"{rays / dt:.4g} rays/s; its two passes run again, each "
-              f"timed alone: pass 1 {pass1 / n * 1e3:.1f} ms/sample, "
-              f"{pass1_launches} kernel launches; pass 2 "
-              f"{pass2 / n * 1e3:.1f} ms/sample, {pass2_launches} kernel "
-              f"launches; peak memory {peak:.0f} MiB; remat_bounces not "
-              f"needed")
-        print(f"[gradient] loss {float(loss):.8f}, albedo gradient "
-              f"{[round(x, 6) for x in g['albedo'].flatten().tolist()]}, "
-              f"finite {finite}")
-        if total != 10 * n or pass1_launches != 10 * n or pass2_launches:
-            fail(f"gradient path: {total} kernel launches ({pass1_launches} "
-                 f"in pass 1 alone, {pass2_launches} in pass 2 alone), "
-                 f"expected {10 * n} (pass 1 only)")
-        # The same sums, though atomic adds may take another order: each
-        # leaf within 1e-5 of its largest entry.
-        for k, v in g.items():
-            gap = float((again["materials"][k] - v).abs().max())
-            if not gap <= 1e-5 * float(v.abs().max()):
-                fail(f"gradient path: leaf {k} of the two passes run alone "
-                     f"differs from fwd_bwd_step_accum's by {gap:.3g}")
-        if not (finite and bool(torch.isfinite(loss)) and float(loss) > 0
-                and float(g["albedo"].abs().sum()) > 0):
-            fail("gradient path: loss or gradients not finite and non-zero")
-        base_loss, base_grads = grad_mod.fwd_bwd_step_accum(cfg, ir_,
-                                                            target, 1)
-        for order, leaf_aabb in RENDER_VARIANTS[1:]:
-            tr.reset_counts()
-            v_loss, v_grads = grad_mod.fwd_bwd_step_accum(
-                cfg.replace(trace_order=order, leaf_aabb=leaf_aabb), ir_,
-                target, 1)
-            key = (order, leaf_aabb, "full", False)
-            add_path_launches(f"gradient path under {key}", {key: 10})
-            launches[(order, leaf_aabb)] = (
-                tr.launches - tr.any_hit_launches, tr.any_hit_launches)
-            # Same hits but for equal-t ties: the loss to 1e-4 relative,
-            # the albedo gradient to 1e-4 of its largest entry.
-            rel = abs(float(v_loss) - float(base_loss)) / float(base_loss)
-            if not rel <= 1e-4:
-                fail(f"gradient path under {key}: loss differs by {rel:.3g}")
-            base_albedo = base_grads["materials"]["albedo"]
-            gap = float((v_grads["materials"]["albedo"]
-                         - base_albedo).abs().max())
-            if not gap <= 1e-4 * float(base_albedo.abs().max()):
-                fail(f"gradient path under {key}: albedo gradient differs "
-                     f"by {gap:.3g}")
-            print(f"[gradient] trace_order={order} leaf_aabb={leaf_aabb}, 1 "
-                  f"sample: loss {float(v_loss):.8f} (default "
-                  f"{float(base_loss):.8f}), albedo gradient differs by "
-                  f"{gap:.3g}; 10 launches of this variant")
-        return launches
+        # render_loss_and_grad (fwd_bwd_step): one graph of the whole
+        # 2-sample forward and backward.  Its first call is the warm-up
+        # and the capture, the second a replay; against the CPU as above,
+        # the replay against the first call within 1e-5 of each leaf's
+        # largest entry (an atomic order may move), 20 launches a replay.
+        nd = 2
+        direct = {}
+        for name in ("cuda", "cpu"):
+            ir_n = ir_to(ir_, name)
+            target = make_target(cfg, ir_n, name)
+            direct[name] = grad_mod.fwd_bwd_step(cfg, ir_n, target, nd,
+                                                 device=name)
+            if name == "cuda":
+                tr.reset_counts()
+                again = grad_mod.fwd_bwd_step(cfg, ir_n, target, nd)
+                direct_launches = tr.launches
+        loss_c, loss_h = float(direct["cuda"][0]), float(direct["cpu"][0])
+        if (not abs(loss_c - loss_h) <= 1e-4 * abs(loss_h)
+                or float(again[0]) != loss_c or direct_launches != 10 * nd):
+            fail(f"{label}: render_loss_and_grad loss {loss_c} on the card "
+                 f"(replay {float(again[0])}), {loss_h} on the CPU; "
+                 f"{direct_launches} launches in a replay")
+        worst_d = worst_r = 0.0
+        for k, g_h in direct["cpu"][1]["materials"].items():
+            g_c = direct["cuda"][1]["materials"][k]
+            scale = float(g_h.abs().max())
+            gap_r = float((again[1]["materials"][k] - g_c).abs().max())
+            g_c = g_c.cpu()
+            if not (bool(torch.isfinite(g_c).all())
+                    and bool(((g_c - g_h).abs()
+                              <= 2e-3 * g_h.abs() + 1e-4 * scale).all())
+                    and gap_r <= 1e-5 * scale):
+                fail(f"{label}: render_loss_and_grad leaf {k}: card against "
+                     f"CPU or replay against the first call out of bounds")
+            if scale > 0:
+                worst_d = max(worst_d, float((g_c - g_h).abs().max()) / scale)
+                worst_r = max(worst_r, gap_r / scale)
+        print(f"[grad parity] {label} render_loss_and_grad, {nd} samples, "
+              f"one graph of the whole forward and backward: loss "
+              f"{loss_c:.8f} card / {loss_h:.8f} CPU, worst |card - CPU| "
+              f"{worst_d:.3g} of a leaf's largest entry; the replay's loss "
+              f"equal, its gradients within {worst_r:.3g}; "
+              f"{direct_launches} launches a replay")
 
     # Rows 5 and 6 as the kernel table reports them (timed by the sweep,
     # phase 16), and every frontier the kernel serves (checked in phase 15).
@@ -1447,14 +1867,14 @@ def main():
     def check_new_walks(label, walk, rays, recorded, full):
         """Rows 5 and 6, and binary-v1, against their plain versions: the
         frontier-K walk for every K = 2..8, closest-hit and any-hit, the
-        8-wide walk and binary-v1 (closest-hit and any-hit) on 65,536
-        camera rays, 65,536 random rays (closest-hit and any-hit) and a
+        8-wide walk and binary-v1 (closest-hit and any-hit) on a
         65,536-ray strided subset of the recorded bounce-1 and shadow
-        launches; with ``full`` also on those whole launches, where the
-        plain version is timed (the walks of the kernel table only: K =
-        2, 4, 8 and the wide walk closest-hit, K = 4 any-hit); then the
-        random rays cut to the ragged counts of phase 3, every K and the
-        wide walk (check_new_walks_ragged).  ids equal, t bit-equal,
+        launches; with ``full`` also on 65,536 camera rays, 65,536 random
+        rays (closest-hit and any-hit) and the whole recorded launches,
+        where the plain version is timed (the walks of the kernel table
+        only: K = 2, 4, 8 and the wide walk closest-hit, K = 4 any-hit),
+        then on the random rays cut to the ragged counts of phase 3, every
+        K and the wide walk (check_new_walks_ragged).  ids equal, t bit-equal,
         counters equal on every ray, with and without count_steps; the
         frontier's deepest stack equal and no push refused.  Returns
         {(kernel, mode): (plain ms, max |t - t_plain|)} at the full
@@ -1465,13 +1885,13 @@ def main():
                          for x in rays_)
 
         cam, rnd = rays["camera rays"], rays["random rays"]
-        sets = [("camera rays", cam[0], cam[1], None, None),
-                ("random rays", rnd[0], rnd[1], None, None),
-                ("random rays", *rnd),
-                ("recorded bounce 1 subset", *strided(recorded["closest_b1"])),
+        sets = [("recorded bounce 1 subset", *strided(recorded["closest_b1"])),
                 ("recorded shadow subset", *strided(recorded["any_hit_b1"]))]
         if full:
-            sets += [("recorded bounce 1", *recorded["closest_b1"]),
+            sets += [("camera rays", cam[0], cam[1], None, None),
+                     ("random rays", rnd[0], rnd[1], None, None),
+                     ("random rays", *rnd),
+                     ("recorded bounce 1", *recorded["closest_b1"]),
                      ("recorded shadow", *recorded["any_hit_b1"])]
         out = {}
         checked = 0
@@ -1500,7 +1920,8 @@ def main():
               f"equal, t bit-equal, counters equal to the plain version on "
               f"every ray; no push refused, deepest stack (of its rows) "
               f"{ {k: f'{v} of {rows[k]}' for k, v in deepest.items()} }")
-        check_new_walks_ragged(label, walk, rnd)
+        if full:
+            check_new_walks_ragged(label, walk, rnd)
         return out
 
     def check_new_walks_ragged(label, walk, rnd):
@@ -1591,7 +2012,7 @@ def main():
                 times[impl].append((time.time() - t0) / n * 1e3)
                 add_path_launches(f"sort_impl={impl}", {DEFAULT: 10 * n})
         for impl, r_ in renderers.items():
-            profiled = profiled_launches(lambda: r_.step(1))
+            profiled = profiled_launches(lambda: r_.step(1))[0]
             if profiled != (5, 5):
                 fail(f"sort_impl={impl}: the profiler saw {profiled} "
                      f"(closest-hit, any-hit) launches in one replay")
@@ -1633,6 +2054,39 @@ def main():
             torch.cuda.synchronize()
             print(f"[dispatch] {label}: (a) one eager sample under "
                   f"torch.cuda.set_sync_debug_mode('error'): no sync")
+            # (a) The gradient path's eager samples, after a warm-up of
+            # each: pass 1's recording sample, pass 2's vector-Jacobian
+            # product replaying its record and tracing again.
+            params = {"materials": grad_mod.float_subtree(ir_["materials"])}
+            tree, flat = grad_mod._as_parameters(params)
+            merged = grad_mod._merge(ir_, tree)
+            seed = torch.full((st["rng"].shape[0], 3), 1e-6,
+                              device=st["rng"].device)
+            units = {
+                "recording sample": lambda: integrator.render_sample(
+                    cfg, merged, st, record=True)[1],
+                "VJP sample replaying the record": lambda: (
+                    grad_mod._vjp_sample(cfg, merged, flat, st["rng"], seed,
+                                         trace)),
+                "VJP sample tracing again": lambda: grad_mod._vjp_sample(
+                    cfg, merged, flat, st["rng"], seed, None)}
+            trace = units["recording sample"]()
+            for fn in units.values():
+                fn()
+            torch.cuda.synchronize()
+            for name, fn in units.items():
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    fn()
+                except RuntimeError as e:
+                    fail(f"{label}: (a) an eager {name} synchronised: {e}")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+            del tree, flat, merged, seed, trace
+            print(f"[dispatch] {label}: (a) the gradient path's eager "
+                  f"{', '.join(units)} under "
+                  f"torch.cuda.set_sync_debug_mode('error'): no sync")
             # The eager sample's transient memory, for the pool beside it.
             torch.cuda.reset_peak_memory_stats()
             a0 = torch.cuda.memory_allocated()
@@ -1673,12 +2127,8 @@ def main():
                 fail(f"{label}: (b) the replay accounting counted "
                      f"{accounted} launches over {n} samples")
             # (c) the launches of one replay, from the profiler.
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                graph.run(ir_, graph.state, 1)
-                torch.cuda.synchronize()
-            events = profile_step.device_events(prof)
-            profiled = walk_launches(events)
-            out["replay_kernels"] = sum(e.count for e in events)
+            profiled, _, out["replay_kernels"] = profiled_launches(
+                lambda: graph.run(ir_, graph.state, 1))
             if profiled != (5, 5):
                 fail(f"{label}: (c) the profiler saw {profiled} (closest-hit, "
                      f"any-hit) launches in one replay of "
@@ -1834,9 +2284,14 @@ def main():
     # ---- 11. the kernel's variants against the plain version ---------------
     t0 = time.time()
     plain_ms = {}
+    # At 999,698 tris every 4th ray of the recorded launches: the plain
+    # version there takes about a second a variant at full width.
+    shapes5_quarter = {k: tuple(None if x is None else x[::4].contiguous()
+                                for x in shapes5[k])
+                       for k in ("closest_b1", "any_hit_b1")}
     for label, tables, dep, rays, rec, only in (
             ("65,522 tris", ir["kernel"], depth, rays_main, shapes, None),
-            ("999,698 tris", ir5["kernel"], depth5, rays5, shapes5,
+            ("999,698 tris", ir5["kernel"], depth5, rays5, shapes5_quarter,
              [("random rays", "closest")])):
         plain_ms[label] = check_variants(label, tables, dep, rays, rec, only)
     phase_done("phase 11", t0)
@@ -1867,7 +2322,26 @@ def main():
 
     # ---- 14. the gradient path at full width --------------------------------
     t0 = time.time()
-    grad_launches = gradient_at_full_width(cfg, ir)
+    # In a process of its own: a process that had captured, profiled
+    # and freed the gradient graphs, then ran the server phase, crashed
+    # in a later graph replay (PERF.md, ROADMAP.md).
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=gradient_phase, args=(results,))
+    proc.start()
+    try:
+        status, payload = results.get(timeout=900)
+    except queue.Empty:
+        status, payload = "error", "no report within 900 s"
+    proc.join(60)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(5)
+    if status != "ok" or proc.exitcode != 0:
+        fail(f"the gradient phase failed (exit {proc.exitcode}): {payload}")
+    gradient, grad_launches, launch_log = payload
+    for label, expected, counted in launch_log:
+        add_path_launches(label, expected, counted)
     phase_done("phase 14", t0)
 
     # ---- 15. the frontier and wide walks against their plain versions -----
@@ -1915,7 +2389,8 @@ def main():
           f"(Renderer.start, no server) {srv['thread_ms_per_sample']:.1f} "
           f"ms/sample; {srv_closest} "
           f"closest-hit and {srv_any_hit} any-hit launches on stream(s) "
-          f"{srv['streams']} (default stream {srv['default_stream']}); "
+          f"{srv['streams']} (default stream {srv['default_stream']}; the "
+          f"captures' warm-ups on {srv['warmup_streams']}); "
           f"peak memory {srv['peak_mib']:.0f} MiB; snapshots seen "
           f"{srv['samples_seen']}")
     info_med = float(np.median(srv["info_ms"]))
@@ -1951,6 +2426,10 @@ def main():
     if len(srv["streams"]) != 1 or srv["streams"][0] == srv["default_stream"]:
         fail(f"server: the render thread's launches went to streams "
              f"{srv['streams']}, not one stream of its own")
+    if len(srv["warmup_streams"]) > 1 or srv["default_stream"] in srv[
+            "warmup_streams"]:
+        fail(f"server: the captures' warm-ups launched on streams "
+             f"{srv['warmup_streams']}, not the capture stream alone")
     if not srv["pass_ms"] or not (info_med < srv["chunk_ms"]
                                   and pass_med < srv["chunk_ms"]):
         fail("server: (d) readback during the render is not shorter than "
@@ -2002,7 +2481,9 @@ def main():
     for label, run in shard.items():
         for rank, r in enumerate(run["ranks"]):
             print(f"[sharding] {label} rank {rank}: {r['ms_per_sample']:.1f} "
-                  f"ms/sample, peak {r['peak_mib']:.0f} MiB, launches "
+                  f"ms/sample by replay (the eager step, first measured: "
+                  f"{SHARDED_EAGER_MS} ms/sample on 1 rank), peak "
+                  f"{r['peak_mib']:.0f} MiB, launches "
                   f"(closest-hit, any-hit) {r['launches']} over 4 samples")
             if tuple(r["launches"]) != (20, 20):
                 fail(f"sharding {label} rank {rank}: launches "
@@ -2014,13 +2495,15 @@ def main():
           f"{g['samples']} samples: loss {g['loss']:.8g} (one process "
           f"{g['loss_alone']:.8g}, rel diff {g['loss_rel_diff']:.3g}), "
           f"gradients' max |diff| / leaf max "
-          f"{g['grad_max_diff_over_leaf_max']:.3g} (gate rtol 1e-5). The 2 "
+          f"{g['grad_max_diff_over_leaf_max']:.3g} (gate rtol 1e-5); by "
+          f"replay {[round(x, 2) for x in g['ms_per_rank']]} ms per rank, "
+          f"{g['ms_alone']:.2f} ms in one process. The 2 "
           f"ranks share one card: no scaling is claimed.")
     phase_done("phase 19", t0)
 
     # ---- 20. the compiled dispatch: CUDA graphs against eager ----------------
     t0 = time.time()
-    dispatch_numbers = {"main": dispatch_path("main", cfg, ir, 8)}
+    dispatch_numbers = {"main": dispatch_path("main", cfg, ir, 4)}
     # Config 5 built again (dropped after phase 16, so that phases 17-19
     # run without its IR and cached capture on the card).
     _, config5_again, ir5 = textured_heightfield_scene(grid=708, res=1024,
@@ -2063,6 +2546,13 @@ def main():
                 "shared_bytes_per_block": tr.stack_bytes(dep),
                 "blocks_per_sm": tr.blocks_per_sm("cuda", dep, any_hit)}
 
+    def grad_replay_launches(numbers, i):
+        """The gradient path's launches of this kernel per graph replay,
+        by the profiler (phase 14): closest-hit (i = 0) or any-hit."""
+        return {f"launches_per_gradient_{k}_replay": v[i]
+                for k, v in numbers["launches_per_replay"].items()}
+
+    c5_grad = gradient["config5"]["launches_counted"]
     kern = [
         entry("bvh_traverse closest-hit", row12,
               main_closest + grad_launches[("near", 0)][0] + srv_closest,
@@ -2074,7 +2564,8 @@ def main():
                    "launches_gradient_path": grad_launches[("near", 0)][0],
                    "launches_server_path": srv_closest,
                    "launches_per_graph_replay":
-                       dispatch_numbers["main"]["profiled"][0]})),
+                       dispatch_numbers["main"]["profiled"][0],
+                   **grad_replay_launches(gradient, 0)})),
         entry("bvh_traverse any-hit", row12,
               main_any_hit + grad_launches[("near", 0)][1] + srv_any_hit,
               err12["any_hit"], timing["any_hit_b1"], against_v1(
@@ -2084,20 +2575,28 @@ def main():
                        grad_launches[("near", 0)][1],
                    "launches_server_path": srv_any_hit,
                    "launches_per_graph_replay":
-                       dispatch_numbers["main"]["profiled"][1]})),
+                       dispatch_numbers["main"]["profiled"][1],
+                   **grad_replay_launches(gradient, 1)})),
         entry("bvh_traverse closest-hit, stream residency (config 5)", row3,
-              c5_closest, err3["closest"], timing5["closest_b1"], against_v1(
+              c5_closest + c5_grad[0], err3["closest"],
+              timing5["closest_b1"], against_v1(
                   timing5["closest_b1"], False, depth5,
                   {"ms_bounce0": timing5["closest_b0"]["ms"],
                    "ms_v1_bounce0": timing5["closest_b0"]["ms_v1"],
+                   "launches_forward_path": c5_closest,
+                   "launches_gradient_path": c5_grad[0],
                    "launches_per_graph_replay":
-                       dispatch_numbers["config5"]["profiled"][0]})),
+                       dispatch_numbers["config5"]["profiled"][0],
+                   **grad_replay_launches(gradient["config5"], 0)})),
         entry("bvh_traverse any-hit, stream residency (config 5, merged "
-              "2N-ray shadow launch)", row3, c5_any_hit, err3["any_hit"],
-              timing5["any_hit_b1"],
+              "2N-ray shadow launch)", row3, c5_any_hit + c5_grad[1],
+              err3["any_hit"], timing5["any_hit_b1"],
               against_v1(timing5["any_hit_b1"], True, depth5, {
+                  "launches_forward_path": c5_any_hit,
+                  "launches_gradient_path": c5_grad[1],
                   "launches_per_graph_replay":
-                      dispatch_numbers["config5"]["profiled"][1]})),
+                      dispatch_numbers["config5"]["profiled"][1],
+                  **grad_replay_launches(gradient["config5"], 1)})),
     ]
     # Row 4, the variants a render can ask for: launched on the gradient
     # path (phase 14), timed at the main path's shapes (phase 12), held
@@ -2243,7 +2742,7 @@ def main():
                       "counting_ms_per_sample": counting_ms,
                       "server_path": server_numbers,
                       "host_runtime": host, "sharding": shard,
-                      "dispatch": dispatch_numbers}))
+                      "dispatch": dispatch_numbers, "gradient": gradient}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

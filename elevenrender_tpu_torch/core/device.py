@@ -5,7 +5,7 @@ that raises: the port never moves to the CPU on its own.  The CPU is
 used only when the caller passes ``device="cpu"`` (as the tests do).
 
 Also the port's CUDA graph policy, ``CapturedCall``, which the compiled
-sample and the denoiser share.
+sample, the gradient chunks and the denoiser share.
 """
 
 from __future__ import annotations
@@ -47,19 +47,35 @@ _capture_lock = threading.Lock()
 _capture_streams: dict = {}
 
 
+def _capture_stream(device: torch.device):
+    """The high-priority stream kept for warm-ups and captures on
+    ``device``; the caller holds ``_capture_lock``."""
+    stream = _capture_streams.get(device)
+    if stream is None:
+        stream = _capture_streams[device] = torch.cuda.Stream(device,
+                                                              priority=-1)
+    return stream
+
+
 class CapturedCall:
     """A function of static buffers, captured once as a CUDA graph on a
-    card and replayed: the one capture policy of the compiled sample
-    (``render/dispatch.py``) and the denoiser (``render/denoise.py``).
+    card and replayed: the one capture policy of the compiled sample and
+    the gradient chunks (``render/dispatch.py``, ``render/grad.py``) and
+    of the denoiser (``render/denoise.py``).
 
     ``static`` holds the buffers: clones of the first inputs, and later
     inputs are copied into them (``load``).  ``warm_up(fn)`` runs
     ``fn(static)`` eagerly, which builds and loads the kernel libraries,
-    makes the one-time checks that synchronise and uploads the shared
-    constants; ``capture(fn)`` then records ``fn(static)`` into
-    ``graph`` (with its private memory pool), its output into ``out``;
-    ``replay()`` runs it again.  A capture or a
-    replay that fails raises.  On the CPU there is no graph: the caller
+    makes the one-time checks that synchronise, uploads the shared
+    constants and, where ``fn`` runs ``torch.autograd.grad``, starts the
+    autograd engine's device thread with its cuBLAS handle; ``capture(fn)``
+    then records ``fn(static)`` into ``graph`` (with its private memory
+    pool), its output into ``out``; ``replay()`` runs it again.  A
+    captured backward pass reads its parameters as static leaf tensors
+    that require grad (the caller copies new values into them before a
+    replay) and writes its gradients into static buffers; which
+    gradients are ``None`` is decided once, at the capture.  A capture or
+    a replay that fails raises.  On the CPU there is no graph: the caller
     runs ``fn(static)`` itself.
 
     Callers take a ``turn()``: one at a time, and on a card each turn's
@@ -108,10 +124,22 @@ class CapturedCall:
                 self.static[k].copy_(v)
 
     def warm_up(self, fn):
-        """``fn(static)`` eagerly, timed to its end; returns its output."""
+        """``fn(static)`` eagerly, timed to its end; returns its output.
+        It runs as PyTorch's recipe for capturing a backward pass runs
+        its warm-up (``torch.cuda.make_graphed_callables``): on a side
+        stream, between two device synchronisations.  The side stream is
+        the capture stream, so the warm-up holds the capture lock: another
+        thread's capture on that stream would record it otherwise.  Its
+        intermediates go back to the allocator's cache of that stream,
+        which only warm-ups, each after a device synchronisation, draw
+        from: a capture allocates from its graph's own pool."""
         t0 = time.perf_counter()
-        out = fn(self.static)
-        torch.cuda.synchronize(self.device)
+        with _capture_lock:
+            torch.cuda.synchronize(self.device)
+            with torch.cuda.device(self.device), torch.cuda.stream(
+                    _capture_stream(self.device)):
+                out = fn(self.static)
+            torch.cuda.synchronize(self.device)
         self.warmup_s = time.perf_counter() - t0
         return out
 
@@ -120,16 +148,17 @@ class CapturedCall:
         stream kept for captures (the render and readback streams come
         from the default-priority pool, so no other thread's work lands
         on it), with ``capture_error_mode="thread_local"`` (a thread that
-        reads back meanwhile does not abort it)."""
+        reads back meanwhile does not abort it).  A backward pass in
+        ``fn`` runs on the autograd engine's device thread, on the stream
+        of the forward op each node came from, which is the capture
+        stream: its kernels are recorded and its memory drawn from the
+        graph's pool."""
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with _capture_lock:
-            stream = _capture_streams.get(self.device)
-            if stream is None:
-                stream = _capture_streams[self.device] = torch.cuda.Stream(
-                    self.device, priority=-1)
             with torch.cuda.device(self.device), torch.cuda.graph(
-                    graph, stream=stream, capture_error_mode="thread_local"):
+                    graph, stream=_capture_stream(self.device),
+                    capture_error_mode="thread_local"):
                 out = fn(self.static)
         self.capture_s = time.perf_counter() - t0
         self.graph, self.out = graph, out

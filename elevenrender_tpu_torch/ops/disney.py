@@ -5,6 +5,8 @@ BRDF of the reference renderer): diffuse, retro-reflection, Hanrahan-
 Krueger subsurface, sheen, anisotropic GGX specular and clearcoat, gated
 on transmission < 1 and both cosines positive.  Every branch is a
 ``torch.where``, and each expression keeps the JAX package's order.
+The lanes that a gate discards evaluate the lobes at l = v = n
+(``off_lanes_at_normal``): the same values, and no NaN in a gradient.
 """
 
 from __future__ import annotations
@@ -72,8 +74,23 @@ def _aniso_alphas(roughness, anisotropic):
     return ax, ay
 
 
+def off_lanes_at_normal(keep, n, *dirs):
+    """``dirs`` with every lane outside ``keep`` set to the normal, where
+    autograd records (as is, under ``torch.no_grad``).  A lane that a
+    ``where`` discards still runs the lobes' backward, with a cotangent
+    of 0: where l = -v there, h vanishes, a lobe is infinite, and 0 x inf
+    is NaN in the gradients.  At l = v = n the discarded lanes' lobes are
+    finite, and the kept lanes are computed bit for bit as before, so
+    the values and every finite gradient stay the JAX package's."""
+    if not torch.is_grad_enabled():
+        return list(dirs)
+    return [where3(keep, d, n) for d in dirs]
+
+
 def disney_pdf(hd, v, n, l):
     """Mixture pdf of the sampling strategy; 1.0 below the horizon."""
+    below = dot(n, l) <= 0.0
+    l, v = off_lanes_at_normal(~below, n, l, v)
     h = normalize(l + v)
     t = hd["tangent"]
     b = hd["bitangent"]
@@ -93,7 +110,7 @@ def disney_pdf(hd, v, n, l):
     pdf_diff = torch.abs(dot(l, n)) * (1.0 / PIF)
 
     brdf_pdf = diffuse_ratio * pdf_diff + specular_ratio * pdf_spec
-    return torch.where(dot(n, l) <= 0.0, torch.ones_like(brdf_pdf), brdf_pdf)
+    return torch.where(below, torch.ones_like(brdf_pdf), brdf_pdf)
 
 
 def disney_sample(hd, v, n, r1, r2, r3):
@@ -115,7 +132,10 @@ def disney_sample(hd, v, n, r1, r2, r3):
 
 
 def disney_eval(hd, v, n, l):
-    """Full lobe sum -> [..., 3] reflectance."""
+    """Full lobe sum -> [..., 3] reflectance; 0 outside the gate."""
+    gate = ((hd["transmission"] < 1.0) & (dot(n, l) > 0.0)
+            & (dot(n, v) > 0.0))
+    l, v = off_lanes_at_normal(gate, n, l, v)
     t = hd["tangent"]
     b = hd["bitangent"]
     h = normalize(l + v)
@@ -164,7 +184,4 @@ def disney_eval(hd, v, n, l):
             * (1.0 - hd["metallic"])[..., None]
             + (gs * ds)[..., None] * fs
             + (0.25 * hd["clearcoat"] * gr * fr * dr)[..., None])
-
-    gate = ((hd["transmission"] < 1.0) & (dot(n, l) > 0.0)
-            & (dot(n, v) > 0.0))
     return where3(gate, brdf, torch.zeros_like(brdf))

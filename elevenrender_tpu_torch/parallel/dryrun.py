@@ -6,9 +6,11 @@ The counterpart of the JAX package's ``__graft_entry__.py
 dryrun_multichip``: ``dryrun_multichip(n)`` spawns ``n`` ranks (one
 process each, joined by ``torch.distributed``) on the 32x32 Cornell box.
 Every rank builds the scene, runs one sharded forward step
-(``mesh.sharded_render_step``; rank 0 gathers the image), then the
-sharded loss and gradients against a zero target
-(``mesh.sharded_loss_and_grad``, gradients all-reduced).  The parent
+(``mesh.sharded_render_step``, on a card a replay of the captured
+sample; rank 0 gathers the image), then the sharded loss and gradients
+against a zero target (``mesh.sharded_loss_and_grad``, on a card a
+replay of the captured loss-and-gradient graph; gradients
+all-reduced).  The parent
 process checks both for finite values and against the same work in one
 process (the image bit for bit, the loss and gradients within rtol
 1e-5, which is only another order of the same sums), and prints one
@@ -75,7 +77,11 @@ def run_tasks(mesh: pm.PixelMesh, tasks: list) -> list:
     rank 0, None elsewhere), this rank's ``launches`` (closest-hit,
     any-hit kernel launches over the samples), ``ms_per_sample`` (host
     clock, synchronized), ``peak_mib`` (CUDA) and ``tris``.  A grad
-    returns ``loss`` and ``grads`` (the material tree, numpy)."""
+    returns ``loss``, ``grads`` (the material tree, numpy) and ``ms``
+    (host clock, synchronized).  On a card the steps are graph replays
+    (``mesh.sharded_render_step``, ``mesh.sharded_loss_and_grad``): with
+    ``warmup`` the first call, which runs eagerly and captures, is made
+    before the timed ones."""
     from ..convert import params_to_numpy
     from ..ops import traverse as tr
     from ..render.grad import float_subtree
@@ -100,10 +106,20 @@ def run_tasks(mesh: pm.PixelMesh, tasks: list) -> list:
                 (mesh.local_pixels(config.x_res * config.y_res), 3),
                 device=mesh.device)
             params = {"materials": float_subtree(ir["materials"])}
-            loss, grads = pm.sharded_loss_and_grad(
-                config, ir, params, target, task["samples"], mesh)
+
+            def grad_step():
+                return pm.sharded_loss_and_grad(config, ir, params, target,
+                                                task["samples"], mesh)
+
+            if task.get("warmup"):
+                grad_step()
+            sync()
+            t0 = time.perf_counter()
+            loss, grads = grad_step()
+            sync()
             out.append({"loss": float(loss),
-                        "grads": params_to_numpy(grads)})
+                        "grads": params_to_numpy(grads),
+                        "ms": (time.perf_counter() - t0) * 1e3})
             continue
         step = pm.sharded_render_step(config, mesh)
         with torch.no_grad():

@@ -15,6 +15,12 @@ rays.  The image is gathered once per readback
 to the replicated scene tables are all-reduced (``sharded_loss_and_grad``),
 the ``psum`` that GSPMD inserts for the JAX package.
 
+The JAX package jits its steps; here each rank's step replays a CUDA
+graph on its card (``render/dispatch.py``): the forward step the
+captured sample at the rank's pixel offset, the sharded gradient the
+captured loss-and-gradient graph of ``render/grad.py``.  On the CPU the
+same calls run eagerly.
+
 A ``PixelMesh`` is one rank's view: its rank, the world, its device and
 the process group.  Without an initialized process group it is the
 one-process mesh (rank 0 of 1, no group), on which every function here
@@ -31,8 +37,9 @@ import torch.distributed as dist
 
 from ..convert import ir_to
 from ..core.device import resolve_device
+from ..render import dispatch
 from ..render import grad as grad_mod
-from ..render.integrator import init_state, render_sample
+from ..render.integrator import init_state
 
 # The mesh's one axis, as the JAX package names it.
 PIXEL_AXIS = "pixels"
@@ -125,28 +132,41 @@ def all_reduce_sum(t: torch.Tensor, mesh: PixelMesh) -> torch.Tensor:
 
 def sharded_render_step(config, mesh: PixelMesh):
     """A one-sample step for this rank's slice of the image:
-    ``step(ir, state) -> state``, ``render_sample`` at the slice's
-    global pixel offset.  Raises ``ValueError`` if the image's pixels do
-    not split evenly over the ranks."""
+    ``step(ir, state) -> state``, a replay of the captured sample at the
+    slice's global pixel offset (``render/dispatch.py``
+    ``render_sample_jit``, which keys its capture on the offset).  The
+    state is "donated", as the JAX package's step donates it: the step
+    returns the graph's state buffers, which the next step of the same
+    key overwrites (handing them back in skips the copy into them).
+    Raises ``ValueError`` if the image's pixels do not split evenly over
+    the ranks."""
     npix = config.x_res * config.y_res
     offset = mesh.pixel_offset(npix)
 
     def step(ir, state):
-        return render_sample(config, ir, state, pixel_offset=offset,
-                             device=mesh.device)
+        return dispatch.render_sample_jit(config, ir, state,
+                                          pixel_offset=offset,
+                                          device=mesh.device)
 
     return step
 
 
 def shard_map_render_step(config, mesh: PixelMesh):
-    """The same step as ``sharded_render_step``.  The JAX package needs
-    two step builders: GSPMD partitions the jnp program over the mesh but
-    cannot partition a Pallas kernel, so the TPU traversal runs inside
-    ``shard_map``, one explicit step per device.  With one process per
-    device there is only that explicit per-rank step, which launches the
-    CUDA traversal kernel on its own card; the name is kept so both
-    packages offer the same calls."""
-    return sharded_render_step(config, mesh)
+    """``make(ir_tree) -> step(ir, state)``, the JAX package's call: its
+    ``make`` builds a ``shard_map`` over the IR's tree, because GSPMD
+    partitions the jnp program over the mesh but cannot partition a
+    Pallas kernel, so the TPU traversal runs inside ``shard_map``, one
+    explicit step per device.  With one process per device there is only
+    that explicit per-rank step, which launches the CUDA traversal kernel
+    on its own card: ``make`` returns ``sharded_render_step``'s step
+    whatever the tree.  Raises ``ValueError`` at once if the image's
+    pixels do not split evenly over the ranks."""
+    step = sharded_render_step(config, mesh)
+
+    def make(ir_tree):
+        return step
+
+    return make
 
 
 def sharded_loss_and_grad(config, ir, params, target_local, n_samples: int,
@@ -154,18 +174,15 @@ def sharded_loss_and_grad(config, ir, params, target_local, n_samples: int,
     """(loss, gradients as a tree like ``params``) of the whole image's
     MSE, from this rank's slice: the slice's squared error over 3 x the
     whole image's pixels, differentiated by autograd straight through the
-    n samples, then the loss and every gradient leaf summed over the
-    ranks.  ``target_local`` is the slice of the target [local, 3].
-    Every rank returns the same numbers."""
+    n samples (``render/grad.py render_loss_and_grad``'s captured graph
+    at the slice's offset), then the loss and every gradient leaf summed
+    over the ranks.  ``target_local`` is the slice of the target
+    [local, 3].  Every rank returns the same numbers."""
     npix = config.x_res * config.y_res
     state = shard_render_state(init_state(config, mesh.device), mesh)
-    tree, flat = grad_mod._as_parameters(params)
-    with torch.enable_grad():
-        loss = grad_mod.loss_fn(config, ir, tree, target_local, n_samples,
-                                mesh.device, state, mesh.pixel_offset(npix),
-                                npix)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = [all_reduce_sum(torch.zeros_like(p) if g is None else g, mesh)
-             for p, g in zip(flat, grads)]
-    return (all_reduce_sum(loss.detach(), mesh),
-            grad_mod._rebuild(params, iter(grads)))
+    loss, grads = grad_mod.render_loss_and_grad(
+        config, ir, params, target_local, n_samples, mesh.device, state,
+        mesh.pixel_offset(npix), npix)
+    flat = [all_reduce_sum(g, mesh) for g in grad_mod._leaves(grads)]
+    return (all_reduce_sum(loss, mesh),
+            grad_mod._rebuild(params, iter(flat)))

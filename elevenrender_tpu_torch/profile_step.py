@@ -14,16 +14,20 @@ device time by kernel, grouped into the BVH traversal kernel, sorting,
 gathers/scatters and the rest, with the device's busy and idle share of
 the wall time.  With ``--grad`` it profiles one accumulated forward and
 backward pass instead (``render.grad.fwd_bwd_step_accum`` over
-``--samples`` samples): pass 1 (forward only, recording the traces) and
-pass 2 (each sample replayed and differentiated) apart, each with its
-kernels per sample, its device time by group and the device's busy share,
-and the peak device memory of the whole step.  Needs a CUDA card; without
-one it exits non-zero.
+``--samples`` samples), by replay of its captured graphs and beside it
+by the eager loops of its two passes: s per fwd+bwd in turns, then pass 1
+(forward only, recording the traces) and pass 2 (each sample replayed
+and differentiated) apart, each with its ms/sample, kernels and
+traversal launches per sample, its device time by group and the
+device's busy share, and the peak device memory of the graph step.
+Needs a CUDA card; without one it exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import re
 import subprocess
 import sys
 import time
@@ -119,62 +123,136 @@ def _report(profs, label: str, wall_ms: float, samples: int, top: int,
             "ms_by_group": {g: us / 1e3 for g, us in groups.items()}}
 
 
-def _profile_grad(config, ir, args) -> int:
-    """One accumulated fwd+bwd: unprofiled for its time and peak memory,
-    then pass 1 and pass 2 under the profiler, one after the other."""
+def walk_launches(events):
+    """(closest-hit, any-hit) launches of the binary traversal kernel
+    among a profiler's device events, by the kernel's name (demangled, or
+    mangled: bvh_traverse_walk<kAny, ...>)."""
+    got = [0, 0]
+    for e in events:
+        m = re.search(r"bvh_traverse_walk(?:<(true|false)|ILb([01])E)", e.key)
+        if m:
+            got[m.group(1) == "true" or m.group(2) == "1"] += e.count
+    return tuple(got)
+
+
+def wall(fn, *a, **kw):
+    """(fn's result, host-clock seconds to the end of its device
+    work)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return res, time.time() - t0
+
+
+# Profiling sessions per pass of ``profile_grad``, one sample each.
+GRAD_SESSIONS = 2
+
+
+def profile_grad(config, ir, samples: int, top: int = 15) -> dict:
+    """One accumulated forward and backward pass of ``samples`` samples
+    (``render.grad.fwd_bwd_step_accum``), by graph replay and by the
+    eager loops of its two passes (``_accum_fwd``, ``_accum_bwd``) from
+    the same inputs, after one warm-up call (which captures): s per
+    fwd+bwd unprofiled, in turns (eager, graph, graph, eager), and each
+    pass's ms/sample unprofiled; then each pass under the profiler over
+    ``GRAD_SESSIONS`` samples, one sample to a profiling session (a session
+    over several back-to-back replays loses device records), reported by
+    ``_report`` (against the pass's unprofiled ms/sample) with the
+    traversal launches per sample by kernel name.  Also the peak device
+    memory of one graph call.
+    Returns {"graph" | "eager": {"s": [...], "pass1" | "pass2": _report's
+    numbers with "ms_per_sample" and "launches"}, "peak_mib": ...};
+    a pass's entry is None where the profiler recorded no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from .render import grad, integrator
-    from .ops import traverse
 
-    n = args.samples
+    n = samples
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.no_grad():
-        st = integrator.render_sample(config, ir, integrator.init_state(config))
+        st = integrator.render_sample(config, ir,
+                                      integrator.init_state(config))
     target = st["passes"][integrator.BEAUTY, :, :3] * 1.5 + 0.1
-    grad.fwd_bwd_step_accum(config, ir, target, 1)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    traverse.reset_counts()
-    t0 = time.time()
-    loss, _ = grad.fwd_bwd_step_accum(config, ir, target, n)
-    torch.cuda.synchronize()
-    dt = time.time() - t0
-    print(f"fwd_bwd_step_accum, {n} samples: {dt:.3f} s unprofiled, "
-          f"{2 * config.max_bounces * args.res ** 2 * n / dt:.4g} rays/s, "
-          f"loss {float(loss):.6f}, {traverse.launches} traversal launches, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-
-    # The accumulator's own two passes, each called as it calls them.
-    params = {"materials": grad.float_subtree(ir["materials"])}
     dev = target.device
+    params = {"materials": grad.float_subtree(ir["materials"])}
+    buffers = grad.static_params(ir, params, dev)
+    merged = grad._merge(ir, buffers)
+    grad.fwd_bwd_step_accum(config, ir, target, n)  # warm-up and captures
 
-    def pass1():
-        return grad._accum_fwd(config, ir, params, target, n, True, dev)
+    def eager(n_):
+        loss, seed, caches, _ = grad._accum_fwd(config, ir, params, target,
+                                                n_, True, dev)
+        return grad._accum_bwd(config, ir, params, seed, caches, n_, dev)
 
-    def pass2(fwd):
-        _, seed, caches = fwd
-        return grad._accum_bwd(config, ir, params, seed, caches, n, dev)
+    def graph(n_):
+        return grad.fwd_bwd_step_accum(config, ir, target, n_)
 
-    def timed(fn, *a):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res = fn(*a)
-        torch.cuda.synchronize()
-        return res, (time.time() - t0) / n * 1e3
+    out = {"graph": {"s": []}, "eager": {"s": []}}
+    for name in ("eager", "graph", "graph", "eager"):
+        out[name]["s"].append(wall(eager if name == "eager" else graph,
+                                    n)[1])
+    torch.cuda.reset_peak_memory_stats()
+    graph(n)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
 
-    fwd, plain1 = timed(pass1)
-    _, plain2 = timed(pass2, fwd)
-    with profile(activities=acts) as prof1:
-        fwd, wall1 = timed(pass1)
-    with profile(activities=acts) as prof2:
-        _, wall2 = timed(pass2, fwd)
-    ok1 = _report([prof1], "pass 1 (forward, record)", wall1, n, args.top,
-                  plain1)
-    ok2 = _report([prof2], "pass 2 (replay, forward + backward)", wall2, n,
-                  args.top, plain2)
-    return 0 if ok1 is not None and ok2 is not None else 1
+    # Each pass alone, unprofiled, then one sample a profiling session.
+    (_, seed, caches, _), s1 = wall(
+        grad._accum_fwd_chunked, config, merged, target, n, n, True, dev)
+    _, s2 = wall(grad._accum_bwd_chunked, config, ir, buffers, seed,
+                  caches, n, n, dev)
+    (_, e_seed, e_caches, e_state), e1 = wall(
+        grad._accum_fwd, config, ir, params, target, n, True, dev)
+    _, e2 = wall(grad._accum_bwd, config, ir, params, e_seed, e_caches, n,
+                  dev)
+    rng = integrator.init_state(config, dev)["rng"]
+    tree, flat = grad._as_parameters(params)
+    e_merged = grad._merge(ir, tree)
+    state = {k: v.clone() for k, v in e_state.items()}
+    units = {
+        ("graph", "pass1"): lambda i: grad._accum_fwd_chunk_record(
+            config, merged, state, 1, dev),
+        ("graph", "pass2"): lambda i: grad._accum_bwd_chunk(
+            config, ir, buffers, seed, rng, 1,
+            {k: v[i:i + 1] for k, v in caches[0].items()}, dev),
+        ("eager", "pass1"): lambda i: integrator.render_sample(
+            config, e_merged, state, record=True),
+        ("eager", "pass2"): lambda i: grad._vjp_sample(
+            config, e_merged, flat, rng, e_seed, e_caches[i]),
+    }
+    labels = {"pass1": "pass 1 (forward, record)",
+              "pass2": "pass 2 (replay, forward + backward)"}
+    plain = {("graph", "pass1"): s1, ("graph", "pass2"): s2,
+             ("eager", "pass1"): e1, ("eager", "pass2"): e2}
+    k = min(GRAD_SESSIONS, n)
+    for (name, part), unit in units.items():
+        profs, prof_ms = [], 0.0
+        for i in range(k):
+            with torch.no_grad() if part == "pass1" else \
+                    contextlib.nullcontext():
+                with profile(activities=acts) as prof:
+                    prof_ms += wall(unit, i)[1] * 1e3 / k
+            profs.append(prof)
+        ms = plain[(name, part)] * 1e3 / n
+        print(f"{name} {labels[part]}: {ms:.2f} ms/sample unprofiled")
+        res = _report(profs, f"{name} {labels[part]}", prof_ms, k, top, ms)
+        launches = [0, 0]
+        for prof in profs:
+            launches = [a + b for a, b in zip(launches, walk_launches(
+                device_events(prof)))]
+        out[name][part] = res and {**res, "ms_per_sample": ms,
+                                   "launches": [x / k for x in launches]}
+    g, e = out["graph"], out["eager"]
+    rays = 2 * config.max_bounces * config.x_res * config.y_res * n
+    print(f"fwd_bwd_step_accum, {n} samples, s per fwd+bwd in turns (eager, "
+          f"graph, graph, eager): graph {[round(x, 4) for x in g['s']]}, "
+          f"eager {[round(x, 4) for x in e['s']]}; {rays / min(g['s']):.4g} "
+          f"rays/s by replay, {rays / min(e['s']):.4g} eager; peak memory "
+          f"{out['peak_mib']:.0f} MiB by replay")
+    return out
 
 
 def profile_forward(config, ir, samples: int, top: int = 15) -> dict:
@@ -207,7 +285,7 @@ def profile_forward(config, ir, samples: int, top: int = 15) -> dict:
             for _ in range(n):
                 st = render_sample(config, ir, st)
 
-    def wall(fn, n):
+    def ms_per_sample(fn, n):
         torch.cuda.synchronize()
         t0 = time.time()
         fn(n)
@@ -216,8 +294,8 @@ def profile_forward(config, ir, samples: int, top: int = 15) -> dict:
 
     turns = {"eager": [], "graph": []}
     for name in ("eager", "graph", "graph", "eager"):
-        turns[name].append(wall(graph if name == "graph" else eager,
-                                samples))
+        turns[name].append(ms_per_sample(
+            graph if name == "graph" else eager, samples))
     out = {}
     for name, fn, label in (
             ("graph", graph, "Renderer.step (graph replays)"),
@@ -226,7 +304,7 @@ def profile_forward(config, ir, samples: int, top: int = 15) -> dict:
         for _ in range(samples):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                prof_ms += wall(fn, 1) / samples
+                prof_ms += ms_per_sample(fn, 1) / samples
             profs.append(prof)
         print(f"{label}: {turns[name]} ms/sample unprofiled, in turns")
         res = _report(profs, label, prof_ms, samples, top,
@@ -266,7 +344,9 @@ def main(argv=None) -> int:
     print(f"scene {args.scene}: {ir['tris']['verts'].shape[0]} tris; "
           f"{args.res}x{args.res}, 5 bounces, native")
     if args.grad:
-        return _profile_grad(config, ir, args)
+        out = profile_grad(config, ir, args.samples, args.top)
+        return 0 if all(out[k][p] is not None for k in ("graph", "eager")
+                        for p in ("pass1", "pass2")) else 1
     out = profile_forward(config, ir, args.samples, args.top)
     return 0 if all(v is not None for v in out.values()) else 1
 

@@ -10,8 +10,9 @@ one launch, so the host no longer issues each kernel and can run ahead
 of the card.
 
 A ``SampleGraph`` serves one (config, IR, pixel count, pixel offset,
-device).  It holds, through ``core.device.CapturedCall`` (the capture
-policy it shares with the denoiser):
+device).  It holds, through ``CountedCall`` (``core.device.CapturedCall``,
+the capture policy it shares with the gradient chunks and the denoiser,
+with the launch accounting of a replay):
 
 - ``state``, the static state buffers: the graph reads them and, by a
   copy at its end, writes the next state back into them, so one replay
@@ -22,11 +23,12 @@ policy it shares with the denoiser):
   (``ops.traverse.deferred_counts``), which each replay adds to the
   counters.
 
-Its first run on a card is the warm-up: one eager sample, which builds
-and loads the kernel libraries, makes every one-time check that
-synchronises (the leaf-range check, the occupancy query) and uploads
-the shared constants, and then the capture of the next sample from that
-sample's result.  The capture (``CapturedCall.capture``) runs one at a
+Its first run on a card is the warm-up: one eager sample (on the capture
+stream, between two device synchronisations), which builds and loads
+the kernel libraries, makes every one-time check that synchronises (the
+leaf-range check, the occupancy query) and uploads the shared
+constants, and then the capture of the next sample from that sample's
+result.  The capture (``CapturedCall.capture``) runs one at a
 time, on a stream kept for captures, with
 ``capture_error_mode="thread_local"``, so a thread that reads back while
 another captures does not abort the capture.  A capture or a
@@ -47,11 +49,19 @@ its snapshot while the next chunk runs.  The JAX package's
 worker's per-dispatch watchdog, which the H100 does not have, and a
 replay here is one sample whatever n.
 
-Captured samples are cached per IR, keyed weakly on its geometry tensor
+``SampleGraph(record=True)`` is the gradient path's pass-1 unit
+(``render/grad.py _accum_fwd_chunk_record``): its graph also writes the
+sample's trace record (hit ids, occlusion bits) into buffers of the
+graph, which every replay overwrites, so ``run`` copies each sample's
+record out into a stack [n, ...] it allocates per call.
+
+Captures are cached per IR, keyed weakly on its geometry tensor
 ``ir["tris"]["verts"]`` (as ``ops/traverse.py`` keys its leaf-range
-check): a new IR gets a new capture, and when an IR's geometry tensor is
-dropped its captures, their pools and the IR's other tensors (which an
-entry holds, since its graph reads them) go with it.
+check) and on the identities of all its tensors (``cached``; the
+gradient path's graphs and parameter buffers live in the same cache): a
+new IR gets a new capture, and when an IR's geometry tensor is dropped
+its captures, their pools and the IR's other tensors (which an entry
+holds, since its graph reads them) go with it.
 """
 
 from __future__ import annotations
@@ -67,32 +77,67 @@ from . import shaders as shader_registry
 from .integrator import render_sample
 
 
-def _device(device) -> torch.device:
+def graph_device(device) -> torch.device:
+    """The device a capture is keyed on: a card with its index."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
+class CountedCall(CapturedCall):
+    """A ``CapturedCall`` run one call at a time by ``run(fn)``, whose
+    replays keep the traversal launch counters: the launches its capture
+    counted (``ops.traverse.deferred_counts``) are ``counts``, and each
+    replay adds them (``add_counts``).  ``held``: tensors to keep alive
+    while the graph may read them."""
+
+    def __init__(self, device: torch.device, held=()):
+        super().__init__(device)
+        self.counts: dict | None = None
+        self._held = list(held)
+
+    def run(self, fn):
+        """``fn(static)`` once.  On the CPU, ``fn`` itself.  On a card the
+        first run is the eager warm-up, then the capture of the next run
+        (which executes nothing), so it returns the warm-up's output; every
+        later run replays the graph and returns its output buffers."""
+        if not self.cuda:
+            return fn(self.static)
+        if self.graph is None:
+            out = self.warm_up(fn)
+            with traverse_ops.deferred_counts() as self.counts:
+                self.capture(fn)
+            return out
+        out = self.replay()
+        traverse_ops.add_counts(self.counts)
+        return out
+
+
 class SampleGraph:
     """One progressive sample of ``config`` over the pixels of the state
     it first runs, from ``pixel_offset``, on ``device``, captured as a
-    CUDA graph on a card (``core.device.CapturedCall``: the state is its
-    static buffers, and the sample writes its result back into them).
-    ``held``: tensors to keep alive while the graph may read them."""
+    CUDA graph on a card (``CountedCall``: the state is its static
+    buffers, and the sample writes its result back into them).  With
+    ``record`` the sample also returns its trace record (the module
+    docstring).  ``held``: tensors to keep alive while the graph may read
+    them."""
 
     def __init__(self, config, pixel_offset: int = 0, device="cuda",
-                 held=()):
+                 held=(), record: bool = False):
         self.config = config
         self.pixel_offset = pixel_offset
-        self.device = _device(device)
-        self.counts: dict | None = None
-        self._call = CapturedCall(self.device)
-        self._held = list(held)
+        self.device = graph_device(device)
+        self.record = record
+        self._call = CountedCall(self.device, held)
 
     @property
     def state(self) -> dict | None:
         return self._call.static
+
+    @property
+    def counts(self) -> dict | None:
+        return self._call.counts
 
     @property
     def warmup_s(self):
@@ -102,62 +147,82 @@ class SampleGraph:
     def capture_s(self):
         return self._call.capture_s
 
-    def run(self, ir, state: dict, n: int = 1, safe: bool = False) -> dict:
+    def run(self, ir, state: dict, n: int = 1, safe: bool = False):
         """n samples from ``state``.  Returns the static buffers, or with
-        ``safe`` a copy of them.  Serialised as ``CapturedCall.turn``
-        says."""
+        ``safe`` a copy of them; with ``record``, (that, the n samples'
+        trace records stacked [n, ...]).  Serialised as
+        ``CapturedCall.turn`` says."""
+        if self.record and n < 1:
+            raise ValueError(f"a recording run needs n >= 1, got {n}")
         if n < 1:
             return state
         call = self._call
 
         def sample(st):
             out = render_sample(self.config, ir, st, self.pixel_offset,
-                                device=self.device)
+                                record=self.record, device=self.device)
+            trace = None
+            if self.record:
+                out, trace = out
             for k, v in out.items():
                 st[k].copy_(v)
+            return trace
 
         with call.turn(), torch.no_grad():
             call.load(state)
-            if call.cuda and call.graph is None:
-                call.warm_up(sample)
-                with traverse_ops.deferred_counts() as self.counts:
-                    call.capture(sample)
-                n -= 1
-            for _ in range(n):
-                if call.cuda:
-                    call.replay()
-                    traverse_ops.add_counts(self.counts)
-                else:
-                    sample(call.static)
-            return ({k: v.clone() for k, v in call.static.items()} if safe
-                    else dict(call.static))
+            stack = None
+            for i in range(n):
+                trace = call.run(sample)
+                if self.record:
+                    if stack is None:
+                        stack = {k: v.new_empty((n, *v.shape))
+                                 for k, v in trace.items()}
+                    for k, v in trace.items():
+                        stack[k][i].copy_(v)
+            out = ({k: v.clone() for k, v in call.static.items()} if safe
+                   else dict(call.static))
+            return (out, stack) if self.record else out
 
 
-# Geometry tensor -> {key: SampleGraph}, held weakly (module docstring).
+# Geometry tensor -> {key: entry}, held weakly (module docstring).
 _graphs = WeakIdKeyDictionary()
 _graphs_lock = threading.Lock()
 
 
-def sample_graph(config, ir, npix: int, pixel_offset: int = 0,
-                 device="cuda") -> SampleGraph:
-    """The cached ``SampleGraph`` of this config, IR (its tensors'
-    identities), pixel count and offset, device and shader registry
-    version; made on first use, captured at its first run."""
-    dev = _device(device)
+def ir_leaves(ir: dict) -> list:
+    """The IR's tensors in a fixed order: by group, then by name."""
+    return [t for grp in sorted(ir) for _, t in sorted(ir[grp].items())]
+
+
+def cached(ir: dict, key, make):
+    """The cache entry ``key`` of ``ir`` (its tensors' identities and the
+    shader registry version join the key), made by ``make(held)`` on
+    first use: ``held`` is the IR's tensors but the geometry tensor, which
+    the entry keeps alive while the IR is."""
     anchor = ir["tris"]["verts"]
-    leaves = [t for grp in sorted(ir) for _, t in sorted(ir[grp].items())]
-    key = (config, tuple(id(t) for t in leaves), npix, pixel_offset, dev,
+    leaves = ir_leaves(ir)
+    key = (key, tuple(id(t) for t in leaves),
            shader_registry.registry_version())
     with _graphs_lock:
         entries = _graphs.get(anchor)
         if entries is None:
             entries = _graphs[anchor] = {}
-        graph = entries.get(key)
-        if graph is None:
-            graph = entries[key] = SampleGraph(
-                config, pixel_offset, dev,
-                held=[t for t in leaves if t is not anchor])
-    return graph
+        entry = entries.get(key)
+        if entry is None:
+            entry = entries[key] = make(
+                [t for t in leaves if t is not anchor])
+    return entry
+
+
+def sample_graph(config, ir, npix: int, pixel_offset: int = 0,
+                 device="cuda", record: bool = False) -> SampleGraph:
+    """The cached ``SampleGraph`` of this config, IR (its tensors'
+    identities), pixel count and offset, device, shader registry version
+    and ``record``; made on first use, captured at its first run."""
+    dev = graph_device(device)
+    return cached(ir, ("sample", config, npix, pixel_offset, dev, record),
+                  lambda held: SampleGraph(config, pixel_offset, dev, held,
+                                           record))
 
 
 def _run(config, ir, state, n, pixel_offset, device, safe):

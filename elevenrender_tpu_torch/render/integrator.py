@@ -44,7 +44,8 @@ from ..core.vecmath import dot, normalize, where3
 from ..ops import hdri as hdri_ops
 from ..ops import traverse as traverse_ops
 from ..ops.camera import camera_ray
-from ..ops.disney import disney_eval, disney_pdf, disney_sample
+from ..ops.disney import (disney_eval, disney_pdf, disney_sample,
+                          off_lanes_at_normal)
 from ..ops.intersect import full_hit, gather_tri
 from ..ops.sort import sort_for_packets
 from ..ops.texture import (reverse_spherical_mapping, sample_filtered,
@@ -108,16 +109,16 @@ def resolve_trace_mode(config, ir) -> str:
 def recommended_samples_per_dispatch(config, ir, default: int = 8) -> int:
     """Samples per chunk of a background render (``Renderer.start``
     takes the smaller of this and ``config.block_size``): the render
-    thread publishes a snapshot after each chunk.
+    thread publishes a snapshot after each chunk; and the gradient
+    accumulator's default ``chunk``.
 
     The JAX package bounds this by scene scale, because one jitted
     dispatch there must stay inside its runtime's wall-time envelope.
     Here a chunk of n samples is n replays of one captured sample
-    (``render/dispatch.py``), each its own launch, and the card has no
-    per-launch watchdog, so no scene size forces a smaller chunk (and the
-    gradient accumulator, which runs eagerly, ignores its ``chunk``):
-    the function keeps the two overrides and otherwise returns
-    ``default``.
+    (``render/dispatch.py``, ``render/grad.py``), each its own launch,
+    and the card has no per-launch watchdog, so no scene size forces a
+    smaller chunk: the function keeps the two overrides and otherwise
+    returns ``default``.
     ``config.samples_per_dispatch > 0`` wins over the default, and the
     ``ELEVENRT_SAMPLES_PER_DISPATCH`` environment variable wins over
     both."""
@@ -541,7 +542,12 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
             if merge_lights:
                 l_occluded = s_idx[npix:] >= 0
 
-        f_nee = disney_eval(hd, wo, n, wihdri)
+        # Every use of the lobes below keeps the shading lanes alone; the
+        # others take their lobes at wo = l = n under autograd, so that
+        # their backward stays finite (ops.disney.off_lanes_at_normal).
+        wo_s, wihdri_s, wibrdf_s = off_lanes_at_normal(shade, n, wo, wihdri,
+                                                       wibrdf)
+        f_nee = disney_eval(hd, wo_s, n, wihdri_s)
         if config.compat:
             hdri_val = hdri_ops.env_fetch_uv(env, nu, nv)
             hdri_val = where3(occluded, torch.zeros_like(hdri_val), hdri_val)
@@ -561,21 +567,22 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
                                    * env_w[..., None], zeros3)
             hdri_val = where3(occluded, torch.zeros_like(env_rgb), env_rgb)
             hdri_pdf = env_pdf_sel
-            nee_brdf_pdf = disney_pdf(hd, wo, n, wihdri)
+            nee_brdf_pdf = disney_pdf(hd, wo_s, n, wihdri_s)
             hw = hdri_ops.balance_heuristic(hdri_pdf, nee_brdf_pdf)
             hdri_int = (hdri_val * f_nee
                         * torch.abs(dot(wihdri, n))[..., None]
                         / torch.clamp(hdri_pdf, min=1e-12)[..., None]
                         * (hdri_pdf > 0)[..., None] * hw[..., None])
 
-        brdf_pdf = disney_pdf(hd, wo, n, wibrdf)
-        f_brdf = disney_eval(hd, wo, n, wibrdf)
+        brdf_pdf = disney_pdf(hd, wo_s, n, wibrdf_s)
+        f_brdf = disney_eval(hd, wo_s, n, wibrdf_s)
 
         contrib = hd["emission"] + hdri_int
         if merge_lights:
             # Point-light NEE: the uniform 1/N pick cancels the N; delta
             # lights take no MIS weight.
-            f_l = disney_eval(hd, wo, n, wi_l)
+            f_l = disney_eval(hd, wo_s, n,
+                              *off_lanes_at_normal(shade, n, wi_l))
             pl_c = (lrad / (ldist * ldist)[..., None]) * f_l \
                 * torch.abs(dot(wi_l, n))[..., None] * float(config.n_lights)
             contrib = contrib + where3(shade & ~l_occluded, pl_c,

@@ -17,7 +17,9 @@ holds the graph to the eager sample on the card).
     ``__bool__``, ``__int__``, ``__float__``, ``tolist``, ``nonzero``)
     outside the plain walkers of ``ops/traverse.py``, which the card does
     not run: on a card each would be a stream sync, which a graph cannot
-    capture.
+    capture.  Nor do the gradient path's units (``render/grad.py``): a
+    recording sample of pass 1 and a sample's vector-Jacobian product of
+    pass 2, replaying the record or tracing again.
 (c) The cache: a new config or IR gets a new capture; a dropped IR frees
     its entries.
 (d) The ``_safe`` form's result is never written by a later call; the
@@ -41,6 +43,7 @@ from elevenrender_tpu.render.integrator import (render_samples_jit as
                                                 jax_render_samples)
 from elevenrender_tpu_torch.ops import traverse as tt
 from elevenrender_tpu_torch.render import dispatch
+from elevenrender_tpu_torch.render import grad as tg
 from elevenrender_tpu_torch.render import integrator as ti
 from elevenrender_tpu_torch.render.renderer import Renderer
 from elevenrender_tpu_torch.scene import demo
@@ -159,6 +162,34 @@ def test_a_sample_builds_and_reads_back_nothing(kind, monkeypatch):
     syncs = _HostSyncs(monkeypatch)
     ti.render_sample(cfg, ir, state, device="cpu")
     assert syncs.sites == {}
+
+
+@pytest.mark.parametrize("replayed", [True, False],
+                         ids=["replayed", "retraced"])
+@pytest.mark.parametrize("kind", ["native", "textured"])
+def test_a_recording_and_a_vjp_sample_build_and_read_back_nothing(
+        kind, replayed, monkeypatch):
+    cfg, ir = _scene(kind)
+    params = {"materials": tg.float_subtree(ir["materials"])}
+    tree, flat = tg._as_parameters(params)
+    merged = tg._merge(ir, tree)
+    state = ti.init_state(cfg, device="cpu")
+    seed = torch.full((state["rng"].shape[0], 3), 1e-3)
+
+    def units():
+        with torch.no_grad():
+            _, trace = ti.render_sample(cfg, merged, state, record=True,
+                                        device="cpu")
+        got, _ = tg._vjp_sample(cfg, merged, flat, state["rng"], seed,
+                                trace if replayed else None)
+        return got
+
+    units()  # warm-up
+    syncs = _HostSyncs(monkeypatch)
+    got = units()
+    assert syncs.sites == {}
+    assert float(got[tg._paths(params).index(("materials", "roughness"))]
+                 .abs().sum()) > 0
 
 
 def test_a_new_config_or_ir_gets_a_new_capture_and_a_dropped_ir_frees_it():

@@ -7,6 +7,9 @@ image at its global pixel offset.  Held to:
 - the port in one process: the gathered passes bit for bit (no op of a
   sample sums across rays), the all-reduced loss and gradients within
   rtol 1e-5 (only the order of the sums differs);
+- the JAX package's ``shard_map_render_step(config, mesh)(ir)(ir,
+  state)`` on 2 of its virtual CPU devices: the port's same call on each
+  of 2 ranks' meshes, its slices side by side, at the tolerance below;
 - the JAX package: ``render_sample`` at 32x32 on the Cornell box (12
   tris, the brute-force trace) within rtol 1e-4 / atol 1e-5 on every
   value (as the JAX package holds its own sharded render to one device,
@@ -33,6 +36,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from elevenrender_tpu.parallel import mesh as jax_mesh
 from elevenrender_tpu.render import grad as jax_grad
 from elevenrender_tpu.render.integrator import init_state as jax_init_state
 from elevenrender_tpu.render.integrator import render_sample as jax_render
@@ -153,6 +157,34 @@ def test_sharded_gradients_equal_jax(sharded2):
         np.testing.assert_allclose(
             got["grads"]["materials"][k], g, rtol=1e-4,
             atol=1e-6 * max(np.abs(g).max(), 1e-30), err_msg=k)
+
+
+def test_shard_map_render_step_takes_the_jax_call():
+    """``shard_map_render_step(config, mesh)`` returns ``make(ir_tree) ->
+    step(ir, state)`` in both packages; one sample of each rank's step,
+    its slices side by side, against the JAX package's on a mesh of 2
+    devices (the Cornell box, as ``test_sharded_forward_equals_jax``)."""
+    config, ir = _jax_scene("cornell")
+    jmesh = jax_mesh.make_mesh(2)
+    ir_r = jax_mesh.replicate_ir(ir, jmesh)
+    want = jax_mesh.shard_map_render_step(config, jmesh)(ir_r)(
+        ir_r, jax_mesh.shard_render_state(jax_init_state(config), jmesh))
+    want = jax.tree.map(np.asarray, want)
+    cfg, tir = ir_from_numpy(dataclasses.asdict(config),
+                             jax.tree.map(np.asarray, ir), device="cpu")
+    got = []
+    for rank in range(2):
+        mesh = pm.PixelMesh(rank, 2, torch.device("cpu"))
+        step = pm.shard_map_render_step(cfg, mesh)(tir)
+        out = step(tir, pm.shard_render_state(init_state(cfg, "cpu"), mesh))
+        got.append({k: v.numpy().copy() for k, v in out.items()})
+    np.testing.assert_array_equal(
+        np.concatenate([g["samples"] for g in got]), want["samples"])
+    np.testing.assert_array_equal(np.concatenate([g["rng"] for g in got]),
+                                  want["rng"].astype(np.int64))
+    passes = np.concatenate([g["passes"] for g in got], axis=1)
+    np.testing.assert_allclose(passes, want["passes"], rtol=1e-4, atol=1e-5)
+    assert passes[0, :, :3].max() > 0.0
 
 
 def test_port_cornell_scene_is_the_jax_one():
