@@ -2322,9 +2322,9 @@ def main():
 
     # ---- 14. the gradient path at full width --------------------------------
     t0 = time.time()
-    # In a process of its own: a process that had captured, profiled
-    # and freed the gradient graphs, then ran the server phase, crashed
-    # in a later graph replay (PERF.md, ROADMAP.md).
+    # In a process of its own: a process that had profiled the gradient
+    # graphs, then ran the server phase, crashed in a later graph replay
+    # (ROADMAP.md).
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     proc = ctx.Process(target=gradient_phase, args=(results,))
