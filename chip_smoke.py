@@ -2,6 +2,12 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --replay-reproducer
+
+The second form runs only replay_after_profiled_backward, a plain
+PyTorch sequence that captures, profiles and frees a backward graph and
+then replays forward graphs (an attempt to reproduce small the replay
+crash of ROADMAP.md); it exits 0 when it runs through.
 
 Phases (each prints its lines; any failure ends the run non-zero and no
 result line is printed):
@@ -23,7 +29,10 @@ result line is printed):
     which captures the sample as a CUDA graph; then 8 timed replays),
     with the kernel's launch counts (a replay adds what its capture
     counted), then 8 more replays, each under the profiler, whose kernel
-    names count the launches (the count the result line carries);
+    names count the launches (the count the result line carries); then
+    Renderer.profile(path, 4): the trace.json it writes holds 4 x 5 + 5
+    traversal launches by kernel name and 4 x the kernels of a 1-sample
+    trace;
  5. the same scene at 64x64, one sample, on the card and on the CPU;
  6. at the main path's shapes (rays recorded from one sample): the
     kernel against its plain version again, its time per launch in turns
@@ -67,7 +76,10 @@ result line is printed):
     against its first call and against the CPU, 20 launches a replay;
 14. the gradient path at full width, in a process of its own (spawned;
     it builds both scenes again), by replay of its graphs against the
-    eager loops of its two passes from the same inputs:
+    eager loops of its two passes from the same inputs.  The spawn
+    contains an open fault and proves nothing about it: every full run
+    with this phase in the main process died later with SIGSEGV inside
+    CUPTI at a graph launch of phase 20 (d) (ROADMAP.md §3):
     fwd_bwd_step_accum at 1024x1024, 5 bounces, 8 samples on the
     65,522-tri scene, default RenderConfig (pass 1 records, pass 2
     replays the records).  Gates: pass 1's state, loss and every record
@@ -175,7 +187,11 @@ result line is printed):
     time over the unprofiled wall time; config 5 is built again for this
     phase; (e) the guided denoiser at 1024x1024: eager with no sync, the
     graph replay equal to it bit for bit, both timed in turns, and the
-    reserved memory its capture keeps.
+    reserved memory its capture keeps;
+21. the bench (python3 -m elevenrender_tpu_torch.bench) at its full
+    shape in a subprocess: it exits 0, its line parses with every number
+    finite, no config5_error, and its device is this card; the line is
+    printed.
 The last two lines are one JSON object with the kernels' numbers (and
 the server path's, the host runtime's and the sharded path's) and one
 with the result: {"ok": true, "device": {...}}.
@@ -183,6 +199,7 @@ with the result: {"ok": true, "device": {...}}.
 
 import json
 import multiprocessing as mp
+import os
 import queue
 import re
 import subprocess
@@ -858,7 +875,6 @@ def gradient_at_full_width(cfg, ir_, launch_log):
     from elevenrender_tpu_torch.ops import traverse as tr
     from elevenrender_tpu_torch.render import dispatch
     from elevenrender_tpu_torch.render import grad as grad_mod
-    from elevenrender_tpu_torch.render import integrator
 
     n = 8
     res = cfg.x_res
@@ -937,36 +953,25 @@ def gradient_at_full_width(cfg, ir_, launch_log):
                 and out["chunk_gap"][chunk] <= 1e-5):
             fail(f"gradient path, chunk={chunk}: RNG or gradients "
                  f"differ from eager's")
-    # (d) launches: the accounting above and the profiler, one
-    # replay to a profiling session.
-    prof1 = profiled_launches(lambda: grad_mod._accum_fwd_chunk_record(
-        cfg, merged, state, 1, dev))[0]
-    cache0 = {k: v[:1] for k, v in caches[0].items()}
-    prof2 = profiled_launches(lambda: grad_mod._accum_bwd_chunk(
-        cfg, ir_, buffers, seed, rng, 1, cache0, dev))[0]
+    # (d) launches by the accounting (the profiler's count per replay
+    # comes from (g)).
     # (e) cache_traces=False: pass 2 traces every sample again.
     tr.reset_counts()
     r_loss, r_grads = grad_mod.render_loss_and_grad_accum(
         cfg, ir_, params, target, n, cache_traces=False)
     torch.cuda.synchronize()
     counted_rt = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
-    prof_rt = profiled_launches(lambda: grad_mod._accum_bwd_chunk(
-        cfg, ir_, buffers, seed, rng, 1, None, dev))[0]
     out["retrace_gap"] = grad_gap(r_grads, e_grads)
     if float(r_loss) != float(e_loss) or not out["retrace_gap"] <= 1e-5:
         fail(f"gradient path, cache_traces=False: loss {float(r_loss)} "
              f"(eager {float(e_loss)}), gradients differ by "
              f"{out['retrace_gap']:.3g}")
-    out["launches_per_replay"] = {"pass1": prof1, "pass2": prof2,
-                                  "pass2_retrace": prof_rt}
     out["launches_counted"] = {"pass1": counted1, "pass2": counted2,
                                "retrace": counted_rt}
     if (counted1 != (5 * n, 5 * n) or counted2 != (0, 0)
-            or counted_rt != (10 * n, 10 * n) or prof1 != (5, 5)
-            or prof2 != (0, 0) or prof_rt != (5, 5)):
+            or counted_rt != (10 * n, 10 * n)):
         fail(f"gradient path: launches (closest-hit, any-hit) counted "
-             f"{out['launches_counted']}, profiled per replay "
-             f"{out['launches_per_replay']}; expected 5 + 5 a pass-1 "
+             f"{out['launches_counted']}; expected 5 + 5 a pass-1 "
              f"replay, 0 a pass-2 replay, 5 + 5 a re-traced one")
     # (f) New parameter values (the albedo halved): no new capture,
     # eager's result for those values.
@@ -994,15 +999,26 @@ def gradient_at_full_width(cfg, ir_, launch_log):
         fail(f"gradient path: the halved albedo's loss {float(h_loss)} "
              f"(eager {float(he_loss)}) or gradients (gap "
              f"{out['new_values_gap']:.3g}) differ")
-    del caches, e_caches, seed, state, cache0
-    # (g) s per fwd+bwd in turns, each pass's ms/sample and busy.
+    del caches, e_caches, seed, state
+    # (g) s per fwd+bwd in turns, each pass's ms/sample and busy, and the
+    # launches of one replay of each graph by the profiler
+    # (profile_step.profile_grad).
     prof = profile_step.profile_grad(cfg, ir_, n, top=8)
-    for name in ("graph", "eager"):
-        for part in ("pass1", "pass2"):
-            if prof[name][part] is None:
-                fail(f"gradient path: the profiler recorded no device "
-                     f"time for the {name} {part}")
+    for name, part in (("graph", "pass1"), ("graph", "pass2"),
+                       ("graph", "pass2_retrace"), ("eager", "pass1"),
+                       ("eager", "pass2")):
+        if prof[name][part] is None:
+            fail(f"gradient path: the profiler recorded no device "
+                 f"time for the {name} {part}")
     out["turns"] = prof
+    out["launches_per_replay"] = {
+        k: tuple(prof["graph"][k]["launches"])
+        for k in ("pass1", "pass2", "pass2_retrace")}
+    if out["launches_per_replay"] != {"pass1": (5, 5), "pass2": (0, 0),
+                                      "pass2_retrace": (5, 5)}:
+        fail(f"gradient path: launches (closest-hit, any-hit) profiled "
+             f"per replay {out['launches_per_replay']}; expected 5 + 5 a "
+             f"pass-1 replay, 0 a pass-2 replay, 5 + 5 a re-traced one")
     # (h) 64 samples, bench.py's headline shape, once by replay.
     torch.cuda.reset_peak_memory_stats()
     (loss64, grads64), s64 = profile_step.wall(
@@ -1124,14 +1140,11 @@ def config5_gradient(cfg5, ir5, launch_log):
 
     from elevenrender_tpu_torch import profile_step
     from elevenrender_tpu_torch.ops import traverse as tr
-    from elevenrender_tpu_torch.render import dispatch
     from elevenrender_tpu_torch.render import grad as grad_mod
-    from elevenrender_tpu_torch.render import integrator
 
     n = 4
     res = cfg5.x_res
     target = make_target(cfg5, ir5, "cuda")
-    dev = target.device
     (_, _), first_s = profile_step.wall(
         grad_mod.fwd_bwd_step_accum, cfg5, ir5, target, n)
     torch.cuda.reset_peak_memory_stats()
@@ -1141,16 +1154,11 @@ def config5_gradient(cfg5, ir5, launch_log):
     counted = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
     variants = dict(tr.variant_launches)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    params = {"materials": grad_mod.float_subtree(ir5["materials"])}
-    buffers = grad_mod.static_params(ir5, params, dev)
-    merged = grad_mod._merge(ir5, buffers)
-    _, seed, caches, state = grad_mod._accum_fwd_chunked(
-        cfg5, merged, target, 1, 8, True, dev)
-    prof1 = profiled_launches(lambda: grad_mod._accum_fwd_chunk_record(
-        cfg5, merged, state, 1, dev))[0]
-    rng = integrator.init_state(cfg5, dev)["rng"]
-    prof2 = profiled_launches(lambda: grad_mod._accum_bwd_chunk(
-        cfg5, ir5, buffers, seed, rng, 1, caches[0], dev))[0]
+    # The launches of one replay of each pass by the profiler, one
+    # sample, as in gradient_at_full_width.
+    prof = profile_step.profile_grad(cfg5, ir5, 1, top=8)
+    prof1, prof2 = (tuple(prof["graph"][k]["launches"])
+                    for k in ("pass1", "pass2"))
     g = grads["materials"]
     finite = all(bool(torch.isfinite(v).all()) for v in g.values())
     nonzero = [k for k, v in g.items() if float(v.abs().sum()) > 0]
@@ -1159,7 +1167,7 @@ def config5_gradient(cfg5, ir5, launch_log):
            "peak_mib": peak, "loss": float(loss),
            "launches_counted": counted,
            "launches_per_replay": {"pass1": prof1, "pass2": prof2},
-           "nonzero_leaves": nonzero}
+           "nonzero_leaves": nonzero, "turns": prof}
     print(f"[gradient] config 5 ({ir5['tris']['verts'].shape[0]} tris, "
           f"textures, a point light) fwd_bwd_step_accum {res}x{res}, "
           f"{n} samples by replay: {s:.3f} s per fwd+bwd "
@@ -1177,6 +1185,144 @@ def config5_gradient(cfg5, ir5, launch_log):
     launch_log.append(("config 5 gradient", {DEFAULT: 10 * n}, variants))
     drop_captures(ir5)
     return out
+
+
+def replay_after_profiled_backward():
+    """The replay crash of ROADMAP.md's fault list, in plain PyTorch and
+    nothing of the port: (1) capture a graph of a forward of 400
+    elementwise steps and a product, ``torch.autograd.grad`` and an add
+    into a static buffer, on a side stream with
+    ``capture_error_mode="thread_local"`` after a warm-up there between
+    two synchronisations (as ``core/device.CapturedCall`` does); (2)
+    replay it once under ``torch.profiler`` (CPU and CUDA); (3) free it;
+    (4) in a thread on a stream of its own (as ``Renderer.start`` runs),
+    capture a forward-only graph and replay it; (5) replay forward-only
+    graphs on the main thread, one captured before step 2 and one after,
+    then (6) once more under the profiler.  Returns the forward output's sum; a crash kills the process
+    (``python3 chip_smoke.py --replay-reproducer`` runs it alone)."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    side = torch.cuda.Stream(dev, priority=-1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(256, 256, device=dev, generator=gen).requires_grad_()
+    x = torch.randn(16384, 256, device=dev, generator=gen)
+    grad = torch.zeros_like(w)
+    lock = threading.Lock()
+
+    def forward(weight):
+        y = x @ weight
+        for i in range(400):
+            y = torch.tanh(y) * 0.5 + y * (0.25 + 1e-3 * i)
+        return y
+
+    def backward_step():
+        with torch.enable_grad():
+            loss = (forward(w) ** 2).mean()
+            g, = torch.autograd.grad(loss, [w])
+        grad.add_(g)
+
+    def capture(fn):
+        with lock:
+            torch.cuda.synchronize(dev)
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.synchronize(dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                fn()
+        return graph
+
+    def forward_graph():
+        out = torch.zeros(256, device=dev)
+
+        def fn():
+            with torch.no_grad():
+                out.copy_(forward(w).sum(0))
+        return capture(fn), out
+
+    before, out_before = forward_graph()
+    bwd = capture(backward_step)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch_profile(activities=acts):
+        bwd.replay()
+        torch.cuda.synchronize(dev)
+    bwd.replay()
+    torch.cuda.synchronize(dev)
+    del bwd
+    torch.cuda.synchronize(dev)
+
+    def render():
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(stream):
+            graph, _ = forward_graph()
+            for _ in range(20):
+                graph.replay()
+            stream.synchronize()
+    worker = threading.Thread(target=render)
+    worker.start()
+    worker.join()
+    after, out_after = forward_graph()
+    for _ in range(50):
+        before.replay()
+        after.replay()
+    torch.cuda.synchronize(dev)
+    with torch_profile(activities=acts):
+        before.replay()
+        after.replay()
+        torch.cuda.synchronize(dev)
+    return float(out_before.sum() + out_after.sum() + grad.sum())
+
+
+def bench_phase(card: str, timeout: int = 600) -> dict:
+    """``python3 -m elevenrender_tpu_torch.bench`` at its default full
+    shape, in a subprocess with no ``BENCH_*`` setting of this process:
+    its stage lines pass through to stderr, and its line is returned.
+    Fails unless it exits 0, its last line parses, every number in it is
+    finite, it has no ``config5_error`` and its ``device`` is ``card``
+    (the ``nvidia-smi`` name and power limit)."""
+    import math
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BENCH_")}
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "elevenrender_tpu_torch.bench"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=timeout, env=env)
+    except subprocess.TimeoutExpired:
+        fail(f"the bench did not end within {timeout} s")
+    sys.stderr.write(proc.stderr)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"the bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    try:
+        line = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        fail(f"the bench's last line does not parse: {lines[-1][:500]}")
+
+    def numbers(tree):
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        if isinstance(tree, list):
+            return [x for v in tree for x in numbers(v)]
+        return [tree] if isinstance(tree, (int, float)) else []
+
+    extra = line.get("extra", {})
+    if "config5_error" in extra:
+        fail(f"the bench's config-5 stage failed: {extra['config5_error']}")
+    if not {"metric", "value", "unit", "vs_baseline"} <= set(line):
+        fail(f"the bench's line lacks bench.py's keys: {sorted(line)}")
+    if not all(math.isfinite(x) for x in numbers(line)):
+        fail(f"the bench's line holds a number that is not finite: {line}")
+    if extra.get("device") != card:
+        fail(f"the bench ran on {extra.get('device')!r}, not {card!r}")
+    return line
 
 
 def gradient_phase(results):
@@ -1457,6 +1603,35 @@ def main():
         if not np.isfinite(beauty).all() or not beauty.mean() > 0:
             fail(f"{label}: beauty pass is not finite with a positive mean")
         return profiled
+
+    def trace_check(label, cfg, ir_, n=4):
+        """Renderer.profile(path, n) at full width: the trace.json it
+        writes holds n samples' device work, n x 5 closest-hit and n x 5
+        any-hit launches by kernel name and n x the kernels of the trace
+        Renderer.profile(path, 1) writes."""
+        import tempfile
+        from types import SimpleNamespace
+        renderer = Renderer(cfg, ir_)
+        renderer.step(1)  # the warm-up sample and the capture
+        kernels_, walks = {}, {}
+        for k in (1, n):
+            with tempfile.TemporaryDirectory() as tmp:
+                renderer.profile(tmp, k)
+                with open(os.path.join(tmp, "trace.json")) as f:
+                    events = [e for e in json.load(f)["traceEvents"]
+                              if e.get("cat") == "kernel"]
+            kernels_[k] = len(events)
+            walks[k] = profile_step.walk_launches(
+                SimpleNamespace(key=e.get("name", ""), count=1)
+                for e in events)
+        print(f"[{label}] Renderer.profile(path, {n}): trace.json holds "
+              f"{kernels_[n]} kernels ({kernels_[n] / n:g} a sample; "
+              f"{kernels_[1]} in a 1-sample trace) and {walks[n]} "
+              f"(closest-hit, any-hit) traversal launches")
+        if walks[n] != (5 * n, 5 * n) or kernels_[n] != n * kernels_[1]:
+            fail(f"{label}: Renderer.profile(path, {n}) wrote {kernels_[n]} "
+                 f"kernels and {walks[n]} traversal launches; expected "
+                 f"{n} x {kernels_[1]} and {(5 * n, 5 * n)}")
 
     def card_vs_cpu(label, cfg, ir):
         res = cfg.x_res
@@ -2227,6 +2402,7 @@ def main():
     t0 = time.time()
     cfg = config.replace(max_bounces=5, compat=False)
     main_closest, main_any_hit = drive("main", cfg, ir, 8)
+    trace_check("main", cfg, ir)
     phase_done("phase 4", t0)
 
     # ---- 5. card against CPU ---------------------------------------------
@@ -2322,9 +2498,10 @@ def main():
 
     # ---- 14. the gradient path at full width --------------------------------
     t0 = time.time()
-    # In a process of its own: a process that had profiled the gradient
-    # graphs, then ran the server phase, crashed in a later graph replay
-    # (ROADMAP.md).
+    # In a process of its own: with this phase in the main process, every
+    # full run died later with SIGSEGV inside CUPTI, at a graph launch in
+    # a profiling session of phase 20 (d).  Open (ROADMAP.md §3): the
+    # spawn contains the fault and does not repair it.
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     proc = ctx.Process(target=gradient_phase, args=(results,))
@@ -2517,6 +2694,13 @@ def main():
     dispatch_numbers["denoise"] = denoise_graph_check(ref.state)
     del ref
     phase_done("phase 20", t0)
+
+    # ---- 21. the bench at its full shape -------------------------------------
+    t0 = time.time()
+    drop_captures(ir)
+    bench = bench_phase(card)
+    print(f"[bench] {json.dumps(bench)}")
+    phase_done("phase 21", t0)
 
     src = "elevenrender_tpu_torch/csrc/bvh_traverse.cu"
     row12 = "elevenrender_tpu/ops/bvh_pallas.py:102"
@@ -2749,4 +2933,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--replay-reproducer"]:
+        print(f"[replay fault] reproducer ran through: "
+              f"{replay_after_profiled_backward()}")
+    else:
+        main()

@@ -19,8 +19,9 @@ by the eager loops of its two passes: s per fwd+bwd in turns, then pass 1
 (forward only, recording the traces) and pass 2 (each sample replayed
 and differentiated) apart, each with its ms/sample, kernels and
 traversal launches per sample, its device time by group and the
-device's busy share, and the peak device memory of the graph step.
-Needs a CUDA card; without one it exits non-zero.
+device's busy share, and the peak device memory of the graph step, and
+pass 2 tracing again by replay.  Needs a CUDA card; without one it
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -160,12 +161,15 @@ def profile_grad(config, ir, samples: int, top: int = 15) -> dict:
     ``GRAD_SESSIONS`` samples, one sample to a profiling session (a session
     over several back-to-back replays loses device records), reported by
     ``_report`` (against the pass's unprofiled ms/sample) with the
-    traversal launches per sample by kernel name.  Also the peak device
+    traversal launches per sample by kernel name, those of the session
+    that saw the most device events (one that saw fewer lost records).
+    By replay also pass 2 tracing again (``cache_traces=False``: its own
+    graph, captured by one unprofiled call first).  Also the peak device
     memory of one graph call.
-    Returns {"graph" | "eager": {"s": [...], "pass1" | "pass2": _report's
-    numbers with "ms_per_sample" and "launches"}, "peak_mib": ...};
-    a pass's entry is None where the profiler recorded no device
-    time."""
+    Returns {"graph" | "eager": {"s": [...], "pass1" | "pass2" (and
+    "pass2_retrace" by replay): _report's numbers with "ms_per_sample"
+    and "launches"}, "peak_mib": ...}; a pass's entry is None where the
+    profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -204,6 +208,9 @@ def profile_grad(config, ir, samples: int, top: int = 15) -> dict:
         grad._accum_fwd_chunked, config, merged, target, n, n, True, dev)
     _, s2 = wall(grad._accum_bwd_chunked, config, ir, buffers, seed,
                   caches, n, n, dev)
+    grad._accum_bwd_chunked(config, ir, buffers, seed, [], 1, 1, dev)
+    _, s2r = wall(grad._accum_bwd_chunked, config, ir, buffers, seed, [],
+                   n, n, dev)
     (_, e_seed, e_caches, e_state), e1 = wall(
         grad._accum_fwd, config, ir, params, target, n, True, dev)
     _, e2 = wall(grad._accum_bwd, config, ir, params, e_seed, e_caches, n,
@@ -218,14 +225,18 @@ def profile_grad(config, ir, samples: int, top: int = 15) -> dict:
         ("graph", "pass2"): lambda i: grad._accum_bwd_chunk(
             config, ir, buffers, seed, rng, 1,
             {k: v[i:i + 1] for k, v in caches[0].items()}, dev),
+        ("graph", "pass2_retrace"): lambda i: grad._accum_bwd_chunk(
+            config, ir, buffers, seed, rng, 1, None, dev),
         ("eager", "pass1"): lambda i: integrator.render_sample(
             config, e_merged, state, record=True),
         ("eager", "pass2"): lambda i: grad._vjp_sample(
             config, e_merged, flat, rng, e_seed, e_caches[i]),
     }
     labels = {"pass1": "pass 1 (forward, record)",
-              "pass2": "pass 2 (replay, forward + backward)"}
+              "pass2": "pass 2 (replay, forward + backward)",
+              "pass2_retrace": "pass 2 (tracing again, forward + backward)"}
     plain = {("graph", "pass1"): s1, ("graph", "pass2"): s2,
+             ("graph", "pass2_retrace"): s2r,
              ("eager", "pass1"): e1, ("eager", "pass2"): e2}
     k = min(GRAD_SESSIONS, n)
     for (name, part), unit in units.items():
@@ -239,12 +250,11 @@ def profile_grad(config, ir, samples: int, top: int = 15) -> dict:
         ms = plain[(name, part)] * 1e3 / n
         print(f"{name} {labels[part]}: {ms:.2f} ms/sample unprofiled")
         res = _report(profs, f"{name} {labels[part]}", prof_ms, k, top, ms)
-        launches = [0, 0]
-        for prof in profs:
-            launches = [a + b for a, b in zip(launches, walk_launches(
-                device_events(prof)))]
-        out[name][part] = res and {**res, "ms_per_sample": ms,
-                                   "launches": [x / k for x in launches]}
+        fullest = max(profs, key=lambda p: sum(
+            e.count for e in device_events(p)))
+        out[name][part] = res and {
+            **res, "ms_per_sample": ms,
+            "launches": list(walk_launches(device_events(fullest)))}
     g, e = out["graph"], out["eager"]
     rays = 2 * config.max_bounces * config.x_res * config.y_res * n
     print(f"fwd_bwd_step_accum, {n} samples, s per fwd+bwd in turns (eager, "

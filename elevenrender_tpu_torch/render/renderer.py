@@ -31,7 +31,9 @@ graph.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import tempfile
 import threading
 
 import numpy as np
@@ -49,6 +51,12 @@ log = get_logger()
 
 _PASS_NAMES = {"beauty": BEAUTY, "denoise": DENOISE, "normal": NORMAL,
                "tangent": TANGENT, "bitangent": BITANGENT}
+
+
+# The Chrome trace categories of device work, and the sessions
+# ``Renderer.profile`` may take for one sample.
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+PROFILE_TRIES = 4
 
 
 def parse_pass(name: str) -> int:
@@ -288,21 +296,86 @@ class Renderer:
         log.info("Checkpoint loaded from %s", path)
 
     # -- profiling and saving ---------------------------------------------
+    def _profiled_sample(self, activities, part: str) -> dict:
+        """One synchronous sample in a profiling session of its own,
+        exported to ``part``: its Chrome trace."""
+        from torch.profiler import profile
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+        with profile(activities=activities) as prof:
+            self.step(1)
+            if self._cuda:
+                torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(part)
+        with open(part) as f:
+            return json.load(f)
+
     def profile(self, path: str, n_samples: int = 4) -> None:
         """A ``torch.profiler`` trace of n synchronous samples, written
         as ``trace.json`` (Chrome / Perfetto format) into the directory
-        ``path``."""
-        from torch.profiler import ProfilerActivity, profile
+        ``path``.
+
+        One sample to a profiling session: on a card a session over
+        several graph replays loses device records, and now and then so
+        does a session of one.  Every sample replays the same graph, so
+        a session that saw fewer device events (kernels, copies, sets)
+        than the most seen lost records: its sample is taken back (the
+        state before it restored) and traced again, up to
+        ``PROFILE_TRIES`` times; a first sample, taken back, sets the
+        count to reach.  The sessions' events go into the one file
+        (their timestamps share the process's time base; each thread's
+        and process's naming records are kept once)."""
+        from torch.profiler import ProfilerActivity
         activities = [ProfilerActivity.CPU]
         if self._cuda:
             activities.append(ProfilerActivity.CUDA)
-            torch.cuda.synchronize(self.device)
-        with profile(activities=activities) as prof:
-            self.step(n_samples)
-            if self._cuda:
-                torch.cuda.synchronize(self.device)
         os.makedirs(path, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(path, "trace.json"))
+        trace, named = None, set()
+        with tempfile.TemporaryDirectory(dir=path) as tmp:
+            def traced(part):
+                """(the sample's trace, its device events, the state
+                before it)."""
+                before = self.state
+                got = self._profiled_sample(activities,
+                                            os.path.join(tmp, part))
+                return got, sum(e.get("cat") in DEVICE_EVENTS
+                                for e in got["traceEvents"]), before
+
+            def take_back(before):
+                self.state = before
+                self._publish(before, self._record())
+
+            most = 0
+            if n_samples:
+                _, most, before = traced("probe.json")
+                take_back(before)
+            for i in range(n_samples):
+                for attempt in range(PROFILE_TRIES):
+                    got, n, before = traced(f"{i}.json")
+                    if n >= most or attempt == PROFILE_TRIES - 1:
+                        break
+                    take_back(before)
+                if n < most:
+                    log.warning("Profile: sample %d lost device records in "
+                                "%d sessions", i, PROFILE_TRIES)
+                most = max(most, n)
+                events = []
+                for e in got.pop("traceEvents"):
+                    if e.get("ph") == "M":
+                        key = json.dumps(
+                            {k: e.get(k) for k in ("name", "pid", "tid",
+                                                   "args")}, sort_keys=True)
+                        if key in named:
+                            continue
+                        named.add(key)
+                    events.append(e)
+                if trace is None:
+                    trace = {**got, "traceEvents": []}
+                trace["traceEvents"] += events
+        if trace is None:
+            trace = {"traceEvents": []}
+        with open(os.path.join(path, "trace.json"), "w") as f:
+            json.dump(trace, f)
         log.info("Profile written to %s", path)
 
     def save_pass(self, name: str, path: str) -> None:
