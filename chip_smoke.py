@@ -2,12 +2,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --replay-reproducer
-
-The second form runs only replay_after_profiled_backward, a plain
-PyTorch sequence that captures, profiles and frees a backward graph and
-then replays forward graphs (an attempt to reproduce small the replay
-crash of ROADMAP.md); it exits 0 when it runs through.
 
 Phases (each prints its lines; any failure ends the run non-zero and no
 result line is printed):
@@ -30,9 +24,14 @@ result line is printed):
     with the kernel's launch counts (a replay adds what its capture
     counted), then 8 more replays, each under the profiler, whose kernel
     names count the launches (the count the result line carries); then
-    Renderer.profile(path, 4): the trace.json it writes holds 4 x 5 + 5
-    traversal launches by kernel name and 4 x the kernels of a 1-sample
-    trace;
+    Renderer.profile(path, 4), which traces in a child process (as
+    profile_step's entry points do on a card: the port's tracing entry
+    points open no profiling session in the caller's process, which may
+    hold CUDA graphs; this script's own CUDA-only launch-counting sessions, in
+    phases 4, 8, 17, 18 and 20 (c), do open in its main process): the
+    trace.json it writes holds 4 x 5 + 5 traversal launches by kernel
+    name and 4 x the kernels of one replay of the same graph profiled in
+    this process, and the renderer is the samples further on;
  5. the same scene at 64x64, one sample, on the card and on the CPU;
  6. at the main path's shapes (rays recorded from one sample): the
     kernel against its plain version again, its time per launch in turns
@@ -74,26 +73,26 @@ result line is printed):
     one exactly and launching no traversal; render_loss_and_grad over 2
     samples (one graph of the whole forward and backward): its replay
     against its first call and against the CPU, 20 launches a replay;
-14. the gradient path at full width, in a process of its own (spawned;
-    it builds both scenes again), by replay of its graphs against the
-    eager loops of its two passes from the same inputs.  The spawn
-    contains an open fault and proves nothing about it: every full run
-    with this phase in the main process died later with SIGSEGV inside
-    CUPTI at a graph launch of phase 20 (d) (ROADMAP.md §3):
-    fwd_bwd_step_accum at 1024x1024, 5 bounces, 8 samples on the
+14. the gradient path at full width, in the main process, by replay of
+    its graphs against the eager loops of its two passes from the same
+    inputs: fwd_bwd_step_accum at 1024x1024, 5 bounces, 8 samples on the
     65,522-tri scene, default RenderConfig (pass 1 records, pass 2
     replays the records).  Gates: pass 1's state, loss and every record
     bit-equal to eager; pass 2's gradients within 1e-5 of each leaf's
     largest entry (an atomic order may move) and its final RNG state
     bit-equal; the same for chunk = 1, 3 and 8 and for
     cache_traces=False; 5 + 5 launches a pass-1 replay, 0 a pass-2 replay
-    and 5 + 5 a re-traced one, by the accounting and by the profiler (one
-    replay to a session); the albedo halved replays the same captures
-    and equals eager for those values; remat_bounces at 64x64 agrees.
+    and 5 + 5 a re-traced one, by the accounting of this process's
+    replays, and the same by the profiler (one replay to a session) in
+    profile_step.profile_grad's child process, which rebuilds the IR
+    and captures its own graphs of the same programs; the albedo halved
+    replays the same captures and equals eager for those values;
+    remat_bounces at 64x64 agrees.
     Reported: warm-up and capture s of each pass, the reserved memory
     each capture keeps, s per fwd+bwd and rays/s in turns (eager, graph,
     graph, eager), each pass's ms/sample, busy share and device time over
-    the unprofiled wall (profile_step.profile_grad), peak memory; then 64
+    the unprofiled wall (profile_step.profile_grad, in a child process),
+    peak memory; then 64
     samples once by replay (bench.py's headline shape): s, rays/s, peak
     memory; then 2 samples by replay under each other (order, leaf_aabb)
     variant: the same loss; then config 5 (999,698 tris, textures, a point
@@ -181,7 +180,8 @@ result line is printed):
     5 any-hit launches per sample, by the replay accounting over the n
     replays and by the profiler's kernel names in one replay; (d)
     ms/sample of Renderer.step (replays) and of the eager loop in turns
-    (eager, graph, graph, eager), then each under the profiler: kernels
+    (eager, graph, graph, eager), then each under the profiler
+    (profile_step.profile_forward, each path in a child process): kernels
     and device ms per sample, the device's busy share (the union of the
     device events' intervals over the profiled wall time) and the device
     time over the unprofiled wall time; config 5 is built again for this
@@ -191,19 +191,36 @@ result line is printed):
 21. the bench (python3 -m elevenrender_tpu_torch.bench) at its full
     shape in a subprocess: it exits 0, its line parses with every number
     finite, no config5_error, and its device is this card; the line is
-    printed.
+    printed;
+22. inverse rendering, BASELINE config 4
+    (elevenrender_tpu_torch/inverse_demo.py), in the main process right
+    after phase 14, so that the profiling sessions of phases 17-20 follow
+    the gradient graphs of both in one process: (a) the demo's three
+    stages at its sizes, with the JAX script's assertions: the Cornell
+    wall's albedo at 32x32 (the JAX test's criteria: the last loss below
+    half the first, the mean albedo error below the start's), the camera
+    rotation by Levenberg-Marquardt with forward-mode Jacobians (error
+    below 0.2 deg), the environment tint (error below 0.05); (b) stage 1
+    at full width on the main path's scene (1024x1024, 5 bounces), the
+    terrain albedo from the scene's own toward [0.2, 0.6, 0.3]:
+    INVERSE_STEPS Adam steps of render_loss_and_grad_accum, 8 samples
+    and chunk 8 a step.  Gates: the JAX test's criteria; loss and
+    gradient finite at every step; captures in the first step only
+    (CapturedCall.captures), every later step a replay; 5 + 5 launches a
+    pass-1 replay and 0 a pass-2 replay by the accounting, each pass
+    counted around it.  Reported: s per Adam step, rays/s, peak memory,
+    capture s.
 The last two lines are one JSON object with the kernels' numbers (and
 the server path's, the host runtime's and the sharded path's) and one
 with the result: {"ok": true, "device": {...}}.
 """
 
 import json
-import multiprocessing as mp
 import os
-import queue
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 CONFIG5_TRIS = 999698
@@ -241,7 +258,8 @@ def profiled_launches(fn, times=1):
     profiler sees on the card in ``times`` calls of ``fn``, each to the
     end of its work: measured, where the launch counters of a graph
     replay repeat what its capture counted; with the number of calls
-    made and the device events of one call.  Each call is a profiling
+    made, the device events of one call and its kernels (the device
+    events but copies and sets).  Each call is a profiling
     session of its own: a session over several back-to-back replays
     loses device records (PERF.md), and so, now and then, does a
     session of one replay.  Every call replays the same graph,
@@ -261,9 +279,11 @@ def profiled_launches(fn, times=1):
             torch.cuda.synchronize()
         events = profile_step.device_events(prof)
         sessions.append((profile_step.walk_launches(events),
-                         sum(e.count for e in events)))
-        most = max(k for _, k in sessions)
-        full = [got for got, k in sessions if k == most]
+                         sum(e.count for e in events),
+                         sum(e.count for e in events
+                             if not e.key.startswith(("Memcpy", "Memset")))))
+        most = max(k for _, k, _ in sessions)
+        full = [got for got, k, _ in sessions if k == most]
         if len(full) >= times and len(sessions) > times:
             break
     else:
@@ -271,7 +291,8 @@ def profiled_launches(fn, times=1):
              f"{len(sessions) - len(full)} of {len(sessions)} sessions of "
              f"one call each")
     got = tuple(map(sum, zip(*full[:times])))
-    return got, len(sessions), most
+    kernels = next(n for _, k, n in sessions if k == most)
+    return got, len(sessions), most, kernels
 
 
 # The server phase's scene on the wire: the main path's camera and
@@ -861,14 +882,19 @@ def same_pass1(label, got, want):
                  f"from eager")
 
 
-def gradient_at_full_width(cfg, ir_, launch_log):
+# Phase 14's samples a fwd+bwd on the main path.
+GRAD_SAMPLES = 8
+
+
+def gradient_at_full_width(cfg, ir_, launch_log, prof):
     """Phase 14 on the main path: fwd_bwd_step_accum at full width,
-    8 samples, default RenderConfig (material_fetch="mm_bwd", pass 2
-    replaying pass 1's records), by graph replay against the eager
-    loops of its passes; see the module docstring.  Appends (label,
-    expected, counted) launches by variant to ``launch_log``.  Returns
-    (its numbers, {(order, leaf_aabb): (closest-hit, any-hit) launches
-    of the graph runs})."""
+    GRAD_SAMPLES samples, default RenderConfig (material_fetch="mm_bwd",
+    pass 2 replaying pass 1's records), by graph replay against the
+    eager loops of its passes; see the module docstring.  ``prof``:
+    profile_step's profile of it (GRAD_SAMPLES samples).  Appends
+    (label, expected, counted) launches by variant to ``launch_log``.
+    Returns (its numbers, {(order, leaf_aabb): (closest-hit, any-hit)
+    launches of the graph runs})."""
     import torch
 
     from elevenrender_tpu_torch import profile_step
@@ -876,7 +902,7 @@ def gradient_at_full_width(cfg, ir_, launch_log):
     from elevenrender_tpu_torch.render import dispatch
     from elevenrender_tpu_torch.render import grad as grad_mod
 
-    n = 8
+    n = GRAD_SAMPLES
     res = cfg.x_res
     if cfg.material_fetch != "mm_bwd" or cfg.remat_bounces:
         fail("the gradient path is to run the default RenderConfig")
@@ -953,8 +979,8 @@ def gradient_at_full_width(cfg, ir_, launch_log):
                 and out["chunk_gap"][chunk] <= 1e-5):
             fail(f"gradient path, chunk={chunk}: RNG or gradients "
                  f"differ from eager's")
-    # (d) launches by the accounting (the profiler's count per replay
-    # comes from (g)).
+    # (d) launches by the accounting of these replays (the profiler's
+    # count per replay comes from (g), in profile_grad's child).
     # (e) cache_traces=False: pass 2 traces every sample again.
     tr.reset_counts()
     r_loss, r_grads = grad_mod.render_loss_and_grad_accum(
@@ -968,6 +994,11 @@ def gradient_at_full_width(cfg, ir_, launch_log):
              f"{out['retrace_gap']:.3g}")
     out["launches_counted"] = {"pass1": counted1, "pass2": counted2,
                                "retrace": counted_rt}
+    out["launches_per_replay"] = {
+        "pass1": tuple(c // n for c in counted1),
+        "pass2": tuple(c // n for c in counted2),
+        "pass2_retrace": tuple((r - c) // n
+                               for r, c in zip(counted_rt, counted1))}
     if (counted1 != (5 * n, 5 * n) or counted2 != (0, 0)
             or counted_rt != (10 * n, 10 * n)):
         fail(f"gradient path: launches (closest-hit, any-hit) counted "
@@ -1001,9 +1032,8 @@ def gradient_at_full_width(cfg, ir_, launch_log):
              f"{out['new_values_gap']:.3g}) differ")
     del caches, e_caches, seed, state
     # (g) s per fwd+bwd in turns, each pass's ms/sample and busy, and the
-    # launches of one replay of each graph by the profiler
-    # (profile_step.profile_grad).
-    prof = profile_step.profile_grad(cfg, ir_, n, top=8)
+    # launches of one replay of each graph by the profiler (``prof``,
+    # from profile_grad's child process and its own captures).
     for name, part in (("graph", "pass1"), ("graph", "pass2"),
                        ("graph", "pass2_retrace"), ("eager", "pass1"),
                        ("eager", "pass2")):
@@ -1011,13 +1041,14 @@ def gradient_at_full_width(cfg, ir_, launch_log):
             fail(f"gradient path: the profiler recorded no device "
                  f"time for the {name} {part}")
     out["turns"] = prof
-    out["launches_per_replay"] = {
+    out["launches_profiled_in_child"] = {
         k: tuple(prof["graph"][k]["launches"])
         for k in ("pass1", "pass2", "pass2_retrace")}
-    if out["launches_per_replay"] != {"pass1": (5, 5), "pass2": (0, 0),
-                                      "pass2_retrace": (5, 5)}:
+    if out["launches_profiled_in_child"] != {
+            "pass1": (5, 5), "pass2": (0, 0), "pass2_retrace": (5, 5)}:
         fail(f"gradient path: launches (closest-hit, any-hit) profiled "
-             f"per replay {out['launches_per_replay']}; expected 5 + 5 a "
+             f"per replay in profile_grad's child "
+             f"{out['launches_profiled_in_child']}; expected 5 + 5 a "
              f"pass-1 replay, 0 a pass-2 replay, 5 + 5 a re-traced one")
     # (h) 64 samples, bench.py's headline shape, once by replay.
     torch.cuda.reset_peak_memory_stats()
@@ -1042,8 +1073,8 @@ def gradient_at_full_width(cfg, ir_, launch_log):
           f"entry (chunk 1 / 3 / 8: {out['chunk_gap']}), the final RNG "
           f"bit-equal; cache_traces=False within "
           f"{out['retrace_gap']:.3g}; launches (closest-hit, any-hit) "
-          f"counted {out['launches_counted']}, profiled per replay "
-          f"{out['launches_per_replay']}")
+          f"counted {out['launches_counted']}, profiled per replay in "
+          f"profile_grad's child {out['launches_profiled_in_child']}")
     print(f"[gradient] s per fwd+bwd in turns (eager, graph, graph, "
           f"eager): graph {[round(x, 4) for x in g['s']]}, eager "
           f"{[round(x, 4) for x in e['s']]}; rays/s "
@@ -1130,11 +1161,12 @@ def gradient_at_full_width(cfg, ir_, launch_log):
     return out, launches
 
 
-def config5_gradient(cfg5, ir5, launch_log):
+def config5_gradient(cfg5, ir5, launch_log, prof):
     """Phase 14, config 5: fwd_bwd_step_accum at 999,698 tris, 1024x1024,
     4 samples, by replay after a first call that captures: finite,
     non-zero gradients, 5 + 5 launches a pass-1 replay and 0 a pass-2
-    replay by the accounting and the profiler; its s and peak memory.
+    replay by the accounting and by the profiler (``prof``,
+    profile_step's profile of 1 sample); its s and peak memory.
     Appends its launches by variant to ``launch_log``."""
     import torch
 
@@ -1155,8 +1187,7 @@ def config5_gradient(cfg5, ir5, launch_log):
     variants = dict(tr.variant_launches)
     peak = torch.cuda.max_memory_allocated() / 2**20
     # The launches of one replay of each pass by the profiler, one
-    # sample, as in gradient_at_full_width.
-    prof = profile_step.profile_grad(cfg5, ir5, 1, top=8)
+    # sample, in profile_grad's child, as in gradient_at_full_width.
     prof1, prof2 = (tuple(prof["graph"][k]["launches"])
                     for k in ("pass1", "pass2"))
     g = grads["materials"]
@@ -1166,7 +1197,7 @@ def config5_gradient(cfg5, ir5, launch_log):
            "rays_per_s": 2 * cfg5.max_bounces * res * res * n / s,
            "peak_mib": peak, "loss": float(loss),
            "launches_counted": counted,
-           "launches_per_replay": {"pass1": prof1, "pass2": prof2},
+           "launches_profiled_in_child": {"pass1": prof1, "pass2": prof2},
            "nonzero_leaves": nonzero, "turns": prof}
     print(f"[gradient] config 5 ({ir5['tris']['verts'].shape[0]} tris, "
           f"textures, a point light) fwd_bwd_step_accum {res}x{res}, "
@@ -1175,8 +1206,8 @@ def config5_gradient(cfg5, ir5, launch_log):
           f"warm-ups and captures, {first_s:.3f} s), peak allocated "
           f"{peak:.0f} MiB, loss {float(loss):.8f}, finite {finite}, "
           f"non-zero leaves {nonzero}; launches (closest-hit, any-hit) "
-          f"counted {counted}, profiled per replay pass 1 {prof1}, pass "
-          f"2 {prof2}")
+          f"counted {counted}, profiled per replay in profile_grad's "
+          f"child pass 1 {prof1}, pass 2 {prof2}")
     if not (finite and nonzero and bool(torch.isfinite(loss))):
         fail("config 5 gradient: not finite and non-zero")
     if counted != (5 * n, 5 * n) or prof1 != (5, 5) or prof2 != (0, 0):
@@ -1187,97 +1218,171 @@ def config5_gradient(cfg5, ir5, launch_log):
     return out
 
 
-def replay_after_profiled_backward():
-    """The replay crash of ROADMAP.md's fault list, in plain PyTorch and
-    nothing of the port: (1) capture a graph of a forward of 400
-    elementwise steps and a product, ``torch.autograd.grad`` and an add
-    into a static buffer, on a side stream with
-    ``capture_error_mode="thread_local"`` after a warm-up there between
-    two synchronisations (as ``core/device.CapturedCall`` does); (2)
-    replay it once under ``torch.profiler`` (CPU and CUDA); (3) free it;
-    (4) in a thread on a stream of its own (as ``Renderer.start`` runs),
-    capture a forward-only graph and replay it; (5) replay forward-only
-    graphs on the main thread, one captured before step 2 and one after,
-    then (6) once more under the profiler.  Returns the forward output's sum; a crash kills the process
-    (``python3 chip_smoke.py --replay-reproducer`` runs it alone)."""
-    import threading
+# Phase 22 (b): Adam steps of the full-width albedo loop, and the samples
+# of each step's accumulated gradient (chunk 8: one chunk a pass).
+INVERSE_STEPS = 24
+INVERSE_SAMPLES = 8
 
+
+def inverse_path(cfg, ir_, outdir):
+    """Phase 22: BASELINE config 4, inverse rendering
+    (``elevenrender_tpu_torch/inverse_demo.py``) on the card, in the main
+    process; see the module docstring.  Returns (its numbers, the
+    traversal launches (closest-hit, any-hit) of the phase, its launches
+    by variant)."""
+    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    side = torch.cuda.Stream(dev, priority=-1)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    w = torch.randn(256, 256, device=dev, generator=gen).requires_grad_()
-    x = torch.randn(16384, 256, device=dev, generator=gen)
-    grad = torch.zeros_like(w)
-    lock = threading.Lock()
+    from elevenrender_tpu_torch import inverse_demo as inv
+    from elevenrender_tpu_torch.core.device import CapturedCall
+    from elevenrender_tpu_torch.ops import traverse as tr
+    from elevenrender_tpu_torch.render import dispatch
+    from elevenrender_tpu_torch.render import grad as grad_mod
 
-    def forward(weight):
-        y = x @ weight
-        for i in range(400):
-            y = torch.tanh(y) * 0.5 + y * (0.25 + 1e-3 * i)
-        return y
+    def counts():
+        return tr.launches - tr.any_hit_launches, tr.any_hit_launches
 
-    def backward_step():
-        with torch.enable_grad():
-            loss = (forward(w) ** 2).mean()
-            g, = torch.autograd.grad(loss, [w])
-        grad.add_(g)
+    out = {}
+    tr.reset_counts()
+    # (a) The three stages at the demo's sizes, with its assertions.
+    lines = []
+    t0 = time.time()
+    try:
+        demo = inv.run(outdir, "cuda", log=lines.append)
+    except RuntimeError as e:
+        fail(f"inverse rendering at the demo's sizes: {e}; the last lines: "
+             f"{lines[-4:]}")
+    out["demo_s"] = time.time() - t0
+    alb, cam, tint = demo["albedo"], demo["camera"], demo["tint"]
+    out["demo"] = {
+        "albedo": {"first_loss": alb["losses"][0],
+                   "last_loss": alb["losses"][-1],
+                   "recovered": alb["albedos"][-1].tolist(),
+                   "target": alb["target"].tolist()},
+        "rotation_err_deg": cam["err"],
+        "tint": {"recovered": tint["tints"][-1].tolist(),
+                 "err": tint["err"]}}
+    demo_launches = counts()
+    demo_variants = dict(tr.variant_launches)
+    print(f"[inverse] the demo's stages on the card in {out['demo_s']:.1f} "
+          f"s: albedo (Cornell 32x32, 2 samples, 100 Adam steps) "
+          f"{alb['albedos'][-1]} for {alb['target']}, loss "
+          f"{alb['losses'][0]:.6f} -> {alb['losses'][-1]:.6f}; rotation "
+          f"(Levenberg-Marquardt, forward-mode Jacobians) within "
+          f"{cam['err']:.4f} deg; tint {tint['tints'][-1]} within "
+          f"{tint['err']:.4f}; traversal launches (closest-hit, any-hit) "
+          f"{demo_launches}; {lines[-1].strip()}")
+    if not inv.recovered(alb):
+        fail("inverse rendering: stage 1 at 32x32 missed the JAX test's "
+             "criteria")
+    if not demo_launches[0] > 0:
+        fail("inverse rendering: stage 2 launched no traversal")
 
-    def capture(fn):
-        with lock:
-            torch.cuda.synchronize(dev)
-            with torch.cuda.stream(side):
-                fn()
-            torch.cuda.synchronize(dev)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                fn()
-        return graph
+    # (b) Stage 1 at full width through render_loss_and_grad_accum, each
+    # pass's launches counted around it.
+    n = INVERSE_SAMPLES
+    res = cfg.x_res
+    drop_captures(ir_)
+    tr.reset_counts()
+    passes, steps = {}, []
+    real = {"pass1": grad_mod._accum_fwd_chunked,
+            "pass2": grad_mod._accum_bwd_chunked}
 
-    def forward_graph():
-        out = torch.zeros(256, device=dev)
+    def counted(name):
+        def run(*a, **kw):
+            c0 = counts()
+            got = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            c1 = counts()
+            passes[name] = (c1[0] - c0[0], c1[1] - c0[1])
+            return got
+        return run
 
-        def fn():
-            with torch.no_grad():
-                out.copy_(forward(w).sum(0))
-        return capture(fn), out
+    def on_step(it, loss, grads, s):
+        g = grads["materials"]["albedo"]
+        if it == 0:
+            # The peak up to here is the target's eager samples' and
+            # the warm-ups'; the later steps' is the replays'.
+            peaks.append(torch.cuda.max_memory_allocated() / 2**20)
+            torch.cuda.reset_peak_memory_stats()
+        steps.append({"s": s, "loss": float(loss),
+                      "finite": bool(torch.isfinite(loss))
+                      and bool(torch.isfinite(g).all()),
+                      "captures": CapturedCall.captures - seen[0],
+                      "launches": dict(passes)})
+        seen[0] = CapturedCall.captures
 
-    before, out_before = forward_graph()
-    bwd = capture(backward_step)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch_profile(activities=acts):
-        bwd.replay()
-        torch.cuda.synchronize(dev)
-    bwd.replay()
-    torch.cuda.synchronize(dev)
-    del bwd
-    torch.cuda.synchronize(dev)
-
-    def render():
-        stream = torch.cuda.Stream(dev)
-        with torch.cuda.stream(stream):
-            graph, _ = forward_graph()
-            for _ in range(20):
-                graph.replay()
-            stream.synchronize()
-    worker = threading.Thread(target=render)
-    worker.start()
-    worker.join()
-    after, out_after = forward_graph()
-    for _ in range(50):
-        before.replay()
-        after.replay()
-    torch.cuda.synchronize(dev)
-    with torch_profile(activities=acts):
-        before.replay()
-        after.replay()
-        torch.cuda.synchronize(dev)
-    return float(out_before.sum() + out_after.sum() + grad.sum())
+    seen, peaks = [CapturedCall.captures], []
+    grad_mod._accum_fwd_chunked = counted("pass1")
+    grad_mod._accum_bwd_chunked = counted("pass2")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        full = inv.albedo_stage(cfg, ir_, (0.2, 0.6, 0.3), INVERSE_STEPS, n,
+                                "cuda", accum=True, chunk=n, log=None,
+                                on_step=on_step)
+    finally:
+        grad_mod._accum_fwd_chunked = real["pass1"]
+        grad_mod._accum_bwd_chunked = real["pass2"]
+    wall_s = time.time() - t0
+    peaks.append(torch.cuda.max_memory_allocated() / 2**20)
+    full_launches = counts()  # the target's eager samples, the steps
+    variants = dict(tr.variant_launches)
+    entries = dispatch._graphs.get(ir_["tris"]["verts"], {}).values()
+    capture_s = [e.capture_s for e in entries if isinstance(
+        e, (dispatch.SampleGraph, dispatch.CountedCall))]
+    later = steps[1:]
+    s_step = float(np.median([st["s"] for st in later]))
+    rays = 2 * cfg.max_bounces * res * res * n
+    out["full_width"] = {
+        "steps": INVERSE_STEPS, "samples": n, "s_first_step": steps[0]["s"],
+        "s_per_step_median": s_step,
+        "s_per_step": [st["s"] for st in steps],
+        "rays_per_s": rays / s_step, "peak_mib_first_step": peaks[0],
+        "peak_mib_later_steps": peaks[1],
+        "capture_s": capture_s, "captures_first_step": steps[0]["captures"],
+        "captures_later": sum(st["captures"] for st in later),
+        "losses": full["losses"], "recovered": full["albedos"][-1].tolist(),
+        "start": full["start"].tolist(), "wall_s": wall_s}
+    print(f"[inverse] stage 1 at full width ({res}x{res}, "
+          f"{cfg.max_bounces} bounces, {ir_['tris']['verts'].shape[0]} "
+          f"tris), {INVERSE_STEPS} Adam steps of render_loss_and_grad_accum "
+          f"({n} samples, chunk {n}): albedo {full['start']} -> "
+          f"{full['albedos'][-1]} for [0.2 0.6 0.3], loss "
+          f"{full['losses'][0]:.8f} -> {full['losses'][-1]:.8f}; "
+          f"{s_step:.4f} s per Adam step (median of steps 2-"
+          f"{INVERSE_STEPS}; the first, with its warm-ups and captures, "
+          f"{steps[0]['s']:.3f} s; capture s {capture_s}), "
+          f"{rays / s_step:.4g} rays/s, peak allocated {peaks[1]:.0f} MiB "
+          f"over the later steps ({peaks[0]:.0f} MiB up to the first: "
+          f"the target's eager samples and the warm-ups); "
+          f"captures {steps[0]['captures']} in the first step, "
+          f"{out['full_width']['captures_later']} after; launches "
+          f"(closest-hit, any-hit) per step: pass 1 "
+          f"{sorted({st['launches']['pass1'] for st in steps})}, pass 2 "
+          f"{sorted({st['launches']['pass2'] for st in steps})}")
+    bad = [i for i, st in enumerate(steps) if not st["finite"]]
+    if bad:
+        fail(f"inverse rendering at full width: loss or gradient not finite "
+             f"at steps {bad}")
+    if out["full_width"]["captures_later"] or not steps[0]["captures"]:
+        fail(f"inverse rendering at full width: captures by step "
+             f"{[st['captures'] for st in steps]}; expected the first "
+             f"step's only")
+    if any(st["launches"] != {"pass1": (5 * n, 5 * n), "pass2": (0, 0)}
+           for st in steps):
+        fail(f"inverse rendering at full width: launches by step "
+             f"{[st['launches'] for st in steps]}; expected 5 + 5 a pass-1 "
+             f"replay and 0 a pass-2 replay")
+    if not inv.recovered(full):
+        fail("inverse rendering at full width missed the JAX test's "
+             "criteria")
+    drop_captures(ir_)
+    launches = (demo_launches[0] + full_launches[0],
+                demo_launches[1] + full_launches[1])
+    for k, v in demo_variants.items():
+        variants[k] = variants.get(k, 0) + v
+    return out, launches, variants
 
 
 def bench_phase(card: str, timeout: int = 600) -> dict:
@@ -1325,33 +1430,6 @@ def bench_phase(card: str, timeout: int = 600) -> dict:
     return line
 
 
-def gradient_phase(results):
-    """Phase 14 in a process of its own (``main`` spawns it): the main
-    path's and config 5's scenes built here, ``gradient_at_full_width``
-    and ``config5_gradient``; puts ("ok", (numbers, launches by variant
-    key, the launch log)) or ("error", the traceback) on ``results``."""
-    import traceback
-
-    try:
-        from elevenrender_tpu_torch import kernels
-        from elevenrender_tpu_torch.scene.demo import (
-            heightfield_scene, textured_heightfield_scene)
-        kernels.build_all()
-        _, config, ir = heightfield_scene(grid=182, res=1024, compat=False)
-        launch_log = []
-        numbers, launches = gradient_at_full_width(
-            config.replace(max_bounces=5, compat=False), ir, launch_log)
-        del ir
-        _, config5, ir5 = textured_heightfield_scene(grid=708, res=1024,
-                                                     compat=False)
-        numbers["config5"] = config5_gradient(
-            config5.replace(max_bounces=5, compat=False), ir5, launch_log)
-        results.put(("ok", (numbers, launches, launch_log)))
-    except BaseException:
-        results.put(("error", traceback.format_exc()))
-        raise
-
-
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1379,7 +1457,10 @@ def main():
     t_start = time.time()
 
     def phase_done(name, t0):
-        print(f"[time] {name}: {time.time() - t0:.1f} s")
+        print(f"[time] {name}: {time.time() - t0:.1f} s; reserved "
+              f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB, peak "
+              f"allocated since the last reset "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
     # ---- 1. environment ------------------------------------------------
     smi = subprocess.run(
@@ -1576,8 +1657,8 @@ def main():
         add_path_launches(label, {DEFAULT: 10 * n_timed})
         closest = launches - any_hit
         tr.reset_counts()
-        profiled, calls, _ = profiled_launches(lambda: renderer.step(1),
-                                               n_timed)
+        profiled, calls, *_ = profiled_launches(lambda: renderer.step(1),
+                                                n_timed)
         again = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
         rays_per_sample = 2 * cfg.max_bounces * res * res
         beauty = renderer.get_pass("beauty").reshape(res, res, 4)[..., :3]
@@ -1607,31 +1688,39 @@ def main():
     def trace_check(label, cfg, ir_, n=4):
         """Renderer.profile(path, n) at full width: the trace.json it
         writes holds n samples' device work, n x 5 closest-hit and n x 5
-        any-hit launches by kernel name and n x the kernels of the trace
-        Renderer.profile(path, 1) writes."""
-        import tempfile
+        any-hit launches by kernel name and n x the kernels of one
+        replay of the same graph that the profiler sees in this process
+        (profiled_launches); the renderer is n samples further on.  The
+        call traces in a child process; its wall time is printed."""
         from types import SimpleNamespace
+
         renderer = Renderer(cfg, ir_)
         renderer.step(1)  # the warm-up sample and the capture
-        kernels_, walks = {}, {}
-        for k in (1, n):
-            with tempfile.TemporaryDirectory() as tmp:
-                renderer.profile(tmp, k)
-                with open(os.path.join(tmp, "trace.json")) as f:
-                    events = [e for e in json.load(f)["traceEvents"]
-                              if e.get("cat") == "kernel"]
-            kernels_[k] = len(events)
-            walks[k] = profile_step.walk_launches(
-                SimpleNamespace(key=e.get("name", ""), count=1)
-                for e in events)
+        per_replay = profiled_launches(lambda: renderer.step(1))[3]
+        before = renderer.get_render_info()["samples"]
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            renderer.profile(tmp, n)
+            wall_s = time.time() - t0
+            with open(os.path.join(tmp, "trace.json")) as f:
+                events = [e for e in json.load(f)["traceEvents"]
+                          if e.get("cat") == "kernel"]
+        walks = profile_step.walk_launches(
+            SimpleNamespace(key=e.get("name", ""), count=1) for e in events)
+        taken = renderer.get_render_info()["samples"] - before
         print(f"[{label}] Renderer.profile(path, {n}): trace.json holds "
-              f"{kernels_[n]} kernels ({kernels_[n] / n:g} a sample; "
-              f"{kernels_[1]} in a 1-sample trace) and {walks[n]} "
-              f"(closest-hit, any-hit) traversal launches")
-        if walks[n] != (5 * n, 5 * n) or kernels_[n] != n * kernels_[1]:
-            fail(f"{label}: Renderer.profile(path, {n}) wrote {kernels_[n]} "
-                 f"kernels and {walks[n]} traversal launches; expected "
-                 f"{n} x {kernels_[1]} and {(5 * n, 5 * n)}")
+              f"{len(events)} kernels ({len(events) / n:g} a sample; "
+              f"{per_replay} in one replay profiled here) and {walks} "
+              f"(closest-hit, any-hit) traversal launches; in a child "
+              f"process, {wall_s:.2f} s; the renderer {taken} samples on")
+        if taken != n:
+            fail(f"{label}: Renderer.profile(path, {n}) took the renderer "
+                 f"{taken} samples on")
+        if walks != (5 * n, 5 * n) or len(events) != n * per_replay:
+            fail(f"{label}: Renderer.profile(path, {n}) wrote {len(events)} "
+                 f"kernels and {walks} traversal launches; expected "
+                 f"{n} x {per_replay} and {(5 * n, 5 * n)}")
+        return {"s": wall_s}
 
     def card_vs_cpu(label, cfg, ir):
         res = cfg.x_res
@@ -2212,7 +2301,7 @@ def main():
         return times
 
     def dispatch_path(label, cfg, ir_, n):
-        """Phase 20 (a)-(d) on one path at full width; see the module
+        """Phase 20 (a)-(c) on one path at full width; see the module
         docstring.  Returns its numbers."""
         out = {}
         with torch.no_grad():
@@ -2302,7 +2391,7 @@ def main():
                 fail(f"{label}: (b) the replay accounting counted "
                      f"{accounted} launches over {n} samples")
             # (c) the launches of one replay, from the profiler.
-            profiled, _, out["replay_kernels"] = profiled_launches(
+            profiled, _, out["replay_kernels"], _ = profiled_launches(
                 lambda: graph.run(ir_, graph.state, 1))
             if profiled != (5, 5):
                 fail(f"{label}: (c) the profiler saw {profiled} (closest-hit, "
@@ -2320,8 +2409,11 @@ def main():
                   f"{out['eager_transient_mib']:.0f} MiB)")
             del graph, got, want, start
         out.update(accounted=accounted, profiled=profiled)
-        # (d) ms/sample in turns, busy share and kernels per sample.
-        prof_out = profile_step.profile_forward(cfg, ir_, n, top=8)
+        return out
+
+    def dispatch_timed(label, out, prof_out):
+        """Phase 20 (d) of one path from its profile_step profile: the
+        numbers into ``out``, printed, each present."""
         for name in ("graph", "eager"):
             if prof_out[name] is None:
                 fail(f"{label}: (d) the profiler recorded no device time "
@@ -2340,7 +2432,6 @@ def main():
               f"% / {e['device_over_unprofiled'] * 100:.1f}%; kernels per "
               f"sample {g['kernels']:.0f} / {e['kernels']:.0f}; device "
               f"ms/sample {g['device_ms']:.2f} / {e['device_ms']:.2f}")
-        return out
 
     def denoise_graph_check(state):
         """Phase 20 (e): the denoiser at the state's resolution, guided
@@ -2402,7 +2493,7 @@ def main():
     t0 = time.time()
     cfg = config.replace(max_bounces=5, compat=False)
     main_closest, main_any_hit = drive("main", cfg, ir, 8)
-    trace_check("main", cfg, ir)
+    profile_child = trace_check("main", cfg, ir)
     phase_done("phase 4", t0)
 
     # ---- 5. card against CPU ---------------------------------------------
@@ -2498,28 +2589,27 @@ def main():
 
     # ---- 14. the gradient path at full width --------------------------------
     t0 = time.time()
-    # In a process of its own: with this phase in the main process, every
-    # full run died later with SIGSEGV inside CUPTI, at a graph launch in
-    # a profiling session of phase 20 (d).  Open (ROADMAP.md §3): the
-    # spawn contains the fault and does not repair it.
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    proc = ctx.Process(target=gradient_phase, args=(results,))
-    proc.start()
-    try:
-        status, payload = results.get(timeout=900)
-    except queue.Empty:
-        status, payload = "error", "no report within 900 s"
-    proc.join(60)
-    if proc.is_alive():
-        proc.kill()
-        proc.join(5)
-    if status != "ok" or proc.exitcode != 0:
-        fail(f"the gradient phase failed (exit {proc.exitcode}): {payload}")
-    gradient, grad_launches, launch_log = payload
+    # Both paths' profiles first, each in a child process.
+    grad_prof = profile_step.profile_grad(cfg, ir, GRAD_SAMPLES, top=8)
+    grad_prof5 = profile_step.profile_grad(cfg5, ir5, 1, top=8)
+    launch_log = []
+    gradient, grad_launches = gradient_at_full_width(cfg, ir, launch_log,
+                                                     grad_prof)
+    gradient["config5"] = config5_gradient(cfg5, ir5, launch_log,
+                                           grad_prof5)
     for label, expected, counted in launch_log:
         add_path_launches(label, expected, counted)
     phase_done("phase 14", t0)
+
+    # ---- 22. inverse rendering (BASELINE config 4) --------------------------
+    # Here, in the process that ran phase 14's gradient graphs, ahead of
+    # the profiling sessions of phases 17-20.
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        inverse, inv_launches, inv_variants = inverse_path(cfg, ir, tmp)
+    add_path_launches("inverse path", {DEFAULT: sum(inv_launches)},
+                      inv_variants)
+    phase_done("phase 22", t0)
 
     # ---- 15. the frontier and wide walks against their plain versions -----
     t0 = time.time()
@@ -2688,6 +2778,10 @@ def main():
     if config5_again.replace(max_bounces=5, compat=False) != cfg5:
         fail("config 5 built again has another config")
     dispatch_numbers["config5"] = dispatch_path("config5", cfg5, ir5, 4)
+    # (d) of both paths, each in a child process.
+    for label, cfg_, ir_ in (("main", cfg, ir), ("config5", cfg5, ir5)):
+        dispatch_timed(label, dispatch_numbers[label],
+                       profile_step.profile_forward(cfg_, ir_, 4, top=8))
     del ir5
     ref = Renderer(cfg, ir)
     ref.step(4)
@@ -2731,33 +2825,44 @@ def main():
                 "blocks_per_sm": tr.blocks_per_sm("cuda", dep, any_hit)}
 
     def grad_replay_launches(numbers, i):
-        """The gradient path's launches of this kernel per graph replay,
-        by the profiler (phase 14): closest-hit (i = 0) or any-hit."""
-        return {f"launches_per_gradient_{k}_replay": v[i]
-                for k, v in numbers["launches_per_replay"].items()}
+        """The gradient path's launches of this kernel per graph replay
+        (phase 14), closest-hit (i = 0) or any-hit: by the accounting of
+        this run's replays where phase 14 counted them pass by pass, and
+        by the profiler in profile_grad's child process, whose captures
+        are its own (``_profiled_in_child``)."""
+        out = {f"launches_per_gradient_{k}_replay": v[i]
+               for k, v in numbers.get("launches_per_replay", {}).items()}
+        out.update({f"launches_per_gradient_{k}_replay_profiled_in_child":
+                    v[i] for k, v in
+                    numbers["launches_profiled_in_child"].items()})
+        return out
 
     c5_grad = gradient["config5"]["launches_counted"]
     kern = [
         entry("bvh_traverse closest-hit", row12,
-              main_closest + grad_launches[("near", 0)][0] + srv_closest,
-              err12["closest"], timing["closest_b1"], against_v1(
+              main_closest + grad_launches[("near", 0)][0] + srv_closest
+              + inv_launches[0], err12["closest"], timing["closest_b1"],
+              against_v1(
                   timing["closest_b1"], False, depth,
                   {"ms_bounce0": timing["closest_b0"]["ms"],
                    "ms_v1_bounce0": timing["closest_b0"]["ms_v1"],
                    "launches_forward_path": main_closest,
                    "launches_gradient_path": grad_launches[("near", 0)][0],
                    "launches_server_path": srv_closest,
+                   "launches_inverse_path": inv_launches[0],
                    "launches_per_graph_replay":
                        dispatch_numbers["main"]["profiled"][0],
                    **grad_replay_launches(gradient, 0)})),
         entry("bvh_traverse any-hit", row12,
-              main_any_hit + grad_launches[("near", 0)][1] + srv_any_hit,
+              main_any_hit + grad_launches[("near", 0)][1] + srv_any_hit
+              + inv_launches[1],
               err12["any_hit"], timing["any_hit_b1"], against_v1(
                   timing["any_hit_b1"], True, depth,
                   {"launches_forward_path": main_any_hit,
                    "launches_gradient_path":
                        grad_launches[("near", 0)][1],
                    "launches_server_path": srv_any_hit,
+                   "launches_inverse_path": inv_launches[1],
                    "launches_per_graph_replay":
                        dispatch_numbers["main"]["profiled"][1],
                    **grad_replay_launches(gradient, 1)})),
@@ -2926,15 +3031,12 @@ def main():
                       "counting_ms_per_sample": counting_ms,
                       "server_path": server_numbers,
                       "host_runtime": host, "sharding": shard,
-                      "dispatch": dispatch_numbers, "gradient": gradient}))
+                      "dispatch": dispatch_numbers, "gradient": gradient,
+                      "inverse": inverse, "profile_child": profile_child}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--replay-reproducer"]:
-        print(f"[replay fault] reproducer ran through: "
-              f"{replay_after_profiled_backward()}")
-    else:
-        main()
+    main()

@@ -78,11 +78,16 @@ class CapturedCall:
     a replay that fails raises.  On the CPU there is no graph: the caller
     runs ``fn(static)`` itself.
 
+    ``CapturedCall.captures`` counts the captures made in the process
+    (an inverse-rendering loop checks with it that its steps replay).
+
     Callers take a ``turn()``: one at a time, and on a card each turn's
     work on the stream it enqueues to waits for the last turn's, so the
     buffers are never written by two streams at once.  When the object is
     dropped its last turn is waited for, then the graph and its pool go
     with it."""
+
+    captures = 0
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -160,6 +165,7 @@ class CapturedCall:
                     graph, stream=_capture_stream(self.device),
                     capture_error_mode="thread_local"):
                 out = fn(self.static)
+            CapturedCall.captures += 1
         self.capture_s = time.perf_counter() - t0
         self.graph, self.out = graph, out
 

@@ -21,7 +21,10 @@ and differentiated) apart, each with its ms/sample, kernels and
 traversal launches per sample, its device time by group and the
 device's busy share, and the peak device memory of the graph step, and
 pass 2 tracing again by replay.  Needs a CUDA card; without one it
-exits non-zero.
+exits non-zero.  The profiling runs in a child process
+(``core/child.py``), which builds its own captures from a CPU copy of
+the IR: the session never opens in the caller's process, which may
+hold CUDA graphs.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import re
 import subprocess
 import sys
 import time
+
+from .core import child
 
 
 def _group(name: str) -> str:
@@ -151,7 +156,42 @@ def wall(fn, *a, **kw):
 GRAD_SESSIONS = 2
 
 
+def _device_of(ir):
+    return next(t for leaves in ir.values() for t in leaves.values()).device
+
+
 def profile_grad(config, ir, samples: int, top: int = 15) -> dict:
+    """``_profile_grad_here``, traced in a child process on a card
+    (``core/child.py``), from a CPU copy of the IR."""
+    dev = _device_of(ir)
+    if child.traces_in_child(dev):
+        return child.call_in_child(_profile_grad_child, config,
+                                   child.to_cpu(ir), dev, samples, top)
+    return _profile_grad_here(config, ir, samples, top)
+
+
+def _profile_grad_child(config, ir, device, samples: int, top: int) -> dict:
+    from .convert import ir_to
+    return _profile_grad_here(config, ir_to(ir, device), samples, top)
+
+
+def profile_forward(config, ir, samples: int, top: int = 15) -> dict:
+    """``_profile_forward_here``, traced in a child process on a card
+    (``core/child.py``), from a CPU copy of the IR."""
+    dev = _device_of(ir)
+    if child.traces_in_child(dev):
+        return child.call_in_child(_profile_forward_child, config,
+                                   child.to_cpu(ir), dev, samples, top)
+    return _profile_forward_here(config, ir, samples, top)
+
+
+def _profile_forward_child(config, ir, device, samples: int,
+                           top: int) -> dict:
+    from .convert import ir_to
+    return _profile_forward_here(config, ir_to(ir, device), samples, top)
+
+
+def _profile_grad_here(config, ir, samples: int, top: int = 15) -> dict:
     """One accumulated forward and backward pass of ``samples`` samples
     (``render.grad.fwd_bwd_step_accum``), by graph replay and by the
     eager loops of its two passes (``_accum_fwd``, ``_accum_bwd``) from
@@ -265,7 +305,7 @@ def profile_grad(config, ir, samples: int, top: int = 15) -> dict:
     return out
 
 
-def profile_forward(config, ir, samples: int, top: int = 15) -> dict:
+def _profile_forward_here(config, ir, samples: int, top: int = 15) -> dict:
     """``Renderer.step`` (graph replays) and the eager loop of
     ``render_sample`` from the same state, ``samples`` each after one
     warm-up step: unprofiled ms/sample in turns (eager, graph, graph,

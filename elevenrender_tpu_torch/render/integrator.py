@@ -141,6 +141,7 @@ def uses_sort(config, ir) -> bool:
 
 @torch.no_grad()
 def _sort(config, ir, origin, direction, mask):
+    origin, direction = origin.detach(), direction.detach()
     return sort_for_packets(origin, direction, ir["bvh"]["node_bmin"][0],
                             ir["bvh"]["node_bmax"][0], mask=mask,
                             dir_major=config.sort_dir_major,
@@ -161,7 +162,12 @@ def _trace(config, ir, ray_o, ray_d, mask=None, perm=None, exclude=None,
     here.  Brute force emulates occlusion by nearest hit plus filter.
     ``config.trace_order`` and ``config.leaf_aabb`` choose the traversal
     kernel's variant.  No gradient flows through a trace: its results
-    are constants of the estimator."""
+    are constants of the estimator.  ``torch.no_grad`` stops only the
+    reverse mode, so the rays are detached too: under forward-mode AD
+    the kernel receives primal tensors and returns no tangent."""
+    ray_o, ray_d = ray_o.detach(), ray_d.detach()
+    if t_max is not None:
+        t_max = t_max.detach()
     traverse_ops.check_variant(config.trace_order, config.leaf_aabb, "full")
     occl = exclude is not None
     if resolve_trace_mode(config, ir) == "brute":
@@ -217,17 +223,29 @@ class _ClipBalanced(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, lo, hi):
         ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
         ctx.bounds = (lo, hi)
         return torch.clamp(x, lo, hi)
 
     @staticmethod
-    def backward(ctx, ct):
+    def _scale(ctx, t):
+        """``t * up * down``: the factor of each of the two halves, 1
+        inside, 1/2 at a tie, 0 outside, as ``lax.max`` and ``lax.min``
+        differentiate in either mode."""
         (x,) = ctx.saved_tensors
         lo, hi = ctx.bounds
-        up = (x > lo).to(ct.dtype) + 0.5 * (x == lo).to(ct.dtype)
+        up = (x > lo).to(t.dtype) + 0.5 * (x == lo).to(t.dtype)
         y = torch.clamp(x, min=lo)
-        down = (y < hi).to(ct.dtype) + 0.5 * (y == hi).to(ct.dtype)
-        return ct * up * down, None, None
+        down = (y < hi).to(t.dtype) + 0.5 * (y == hi).to(t.dtype)
+        return t * up * down
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _ClipBalanced._scale(ctx, ct), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _lo, _hi):
+        return _ClipBalanced._scale(ctx, t)
 
 
 class _GatherRowsMmBwd(torch.autograd.Function):
@@ -239,8 +257,15 @@ class _GatherRowsMmBwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, m):
         ctx.save_for_backward(m)
+        ctx.save_for_forward(m)
         ctx.rows = table.shape[0]
         return table[m]
+
+    @staticmethod
+    def jvp(ctx, t_table, _t_m):
+        """The gather's tangent, ``t_table[m]``."""
+        (m,) = ctx.saved_tensors
+        return t_table[m]
 
     @staticmethod
     def backward(ctx, ct):
@@ -468,9 +493,9 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
             wibrdf = disney_sample(hd, wo, n, rs1, rs2, rs3)
         else:
             # Detached sampling: the sampled direction is a constant of
-            # the backward pass.
+            # the backward pass and, detached, of a forward-mode one.
             with torch.no_grad():
-                wibrdf = disney_sample(hd, wo, n, rs1, rs2, rs3)
+                wibrdf = disney_sample(hd, wo, n, rs1, rs2, rs3).detach()
 
         last = bounce == n_bounces - 1
         bounce_perm = None

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..convert import ir_to
+from ..core import child
 from ..core.device import resolve_device
 from ..utils.logging import get_logger
 from . import denoise as denoise_mod
@@ -313,7 +314,14 @@ class Renderer:
     def profile(self, path: str, n_samples: int = 4) -> None:
         """A ``torch.profiler`` trace of n synchronous samples, written
         as ``trace.json`` (Chrome / Perfetto format) into the directory
-        ``path``.
+        ``path``; the renderer is n samples further on after it.
+
+        On a card the samples are traced in a child process
+        (``core/child.py``: the session never opens in this process, which
+        may hold CUDA graphs), which rebuilds this renderer from CPU copies
+        of its IR and state, captures the sample (one unprofiled sample,
+        taken back) and traces from this renderer's state; its final
+        state becomes this renderer's.
 
         One sample to a profiling session: on a card a session over
         several graph replays loses device records, and now and then so
@@ -325,6 +333,17 @@ class Renderer:
         count to reach.  The sessions' events go into the one file
         (their timestamps share the process's time base; each thread's
         and process's naming records are kept once)."""
+        if child.traces_in_child(self.device):
+            state = child.call_in_child(
+                _profile_in_child, self.config, child.to_cpu(self.ir),
+                child.to_cpu(self.state), self.device, path, n_samples)
+            self.state = {k: v.to(self.device) for k, v in state.items()}
+            self._publish(self.state, self._record())
+            return
+        self._profile_here(path, n_samples)
+
+    def _profile_here(self, path: str, n_samples: int) -> None:
+        """``profile`` in this process."""
         from torch.profiler import ProfilerActivity
         activities = [ProfilerActivity.CPU]
         if self._cuda:
@@ -386,3 +405,19 @@ class Renderer:
         img = np.clip(np.abs(data), 0.0, None) ** (1.0 / 2.2)
         write_png(path, np.clip(img, 0.0, 1.0))
         log.info("Saved %s", path)
+
+
+def _profile_in_child(config, ir, state, device, path: str,
+                      n_samples: int) -> dict:
+    """``Renderer.profile``'s child side: the renderer rebuilt on
+    ``device`` at ``state``, one unprofiled sample (the warm-up and the
+    capture) taken back, then the traced samples.  Returns the final
+    state on the CPU."""
+    renderer = Renderer(config, ir, device)
+    start = {k: v.to(renderer.device) for k, v in state.items()}
+    renderer.state = start
+    renderer.step(1)
+    renderer.state = start
+    renderer._publish(start, renderer._record())
+    renderer._profile_here(path, n_samples)
+    return child.to_cpu(renderer.state)
