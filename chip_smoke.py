@@ -49,8 +49,11 @@ result line is printed):
     (1 warm-up sample, then 4 timed replays and 4 profiled, as in phase
     4), 5 closest-hit launches of 1M rays and 5 merged any-hit launches
     of 2M rays per sample, peak memory;
- 9. a small textured, lit heightfield at 64x64, one sample, card against
-    CPU;
+ 9. card against CPU: (a) a small textured, lit heightfield at 64x64,
+    one sample; (b) config 5 at full width (999,698 tris, 1024x1024, 5
+    bounces), two rows of its image rendered eagerly on both, sample by
+    sample: after each, the share of pixels that agree and the share
+    whose RNG state is equal (gate: >= 99% agree after the first);
 10. at config 5's recorded shapes: the kernel against its plain version,
     with its times and bound, as in phase 6;
 11. the kernel's variants (order near/sign x leaf_aabb 0/1/2, the
@@ -92,12 +95,13 @@ result line is printed):
     each capture keeps, s per fwd+bwd and rays/s in turns (eager, graph,
     graph, eager), each pass's ms/sample, busy share and device time over
     the unprofiled wall (profile_step.profile_grad, in a child process),
-    peak memory; then 64
-    samples once by replay (bench.py's headline shape): s, rays/s, peak
-    memory; then 2 samples by replay under each other (order, leaf_aabb)
+    peak memory (64 samples, bench.py's headline shape, is phase 21's
+    bench); then 2 samples by replay under each other (order, leaf_aabb)
     variant: the same loss; then config 5 (999,698 tris, textures, a point
-    light), 4 samples by replay: finite, non-zero gradients, the same
-    launch gates, s and peak memory;
+    light), 4 samples by replay: finite, non-zero gradients, 5 + 5
+    launches a sample over both passes by the accounting, s and peak
+    memory (its profile by pass is profile_step --scene config5 --grad,
+    left out of this run for its length);
 15. the frontier-K walk (csrc/bvh_frontier.cu, every K = 2..8,
     closest-hit and any-hit), the 8-wide walk (csrc/bvh_wide.cu; both
     one ray per lane tile, the warp's leaf scans pooled) and binary-v1
@@ -154,10 +158,12 @@ result line is printed):
     stream; its launches are the counters' (a replay adds what its
     capture counted), and one replay of the synchronous render's graph
     is counted by the profiler;
-19. (a) the host runtime: config 5's 999,698 tris through the C++ SAH
-    build and the numpy build, both timed: perm, node ranges and max
-    leaf equal, boxes bit-equal; (b) pixel sharding over
-    torch.distributed (elevenrender_tpu_torch/parallel/), spawned ranks:
+19. (a) the host runtime: the heightfield at 318,402 tris (a third of
+    config 5's; phase 7 builds config 5 itself with the C++ build)
+    through the C++ SAH build and the numpy build, both timed: perm,
+    node ranges and max leaf equal, boxes bit-equal; (b) pixel sharding
+    over torch.distributed (elevenrender_tpu_torch/parallel/), spawned
+    ranks:
     the main path (65,522 tris, 1024x1024, 5 bounces, 4 samples) on 1
     rank over NCCL and on 2 ranks that share the card over gloo, through
     sharded_render_step and gather_image, equal to Renderer.step(4) bit
@@ -178,16 +184,18 @@ result line is printed):
     then n replays against n eager samples from the same state: passes,
     sample counts and RNG state equal bit for bit; (c) 5 closest-hit and
     5 any-hit launches per sample, by the replay accounting over the n
-    replays and by the profiler's kernel names in one replay; (d)
-    ms/sample of Renderer.step (replays) and of the eager loop in turns
-    (eager, graph, graph, eager), then each under the profiler
-    (profile_step.profile_forward, each path in a child process): kernels
-    and device ms per sample, the device's busy share (the union of the
+    replays and by the profiler's kernel names in one replay; (d) on the
+    main path, ms/sample of Renderer.step (replays) and of the eager loop
+    in turns (eager, graph, graph, eager), then each under the profiler
+    (profile_step.profile_forward, in a child process): kernels and
+    device ms per sample, the device's busy share (the union of the
     device events' intervals over the profiled wall time) and the device
-    time over the unprofiled wall time; config 5 is built again for this
-    phase; (e) the guided denoiser at 1024x1024: eager with no sync, the
-    graph replay equal to it bit for bit, both timed in turns, and the
-    reserved memory its capture keeps;
+    time over the unprofiled wall time (config 5's is profile_step
+    --scene config5, left out of this run for its length); config 5's IR
+    comes back to the card from a host copy for this phase; (e) the
+    guided denoiser at 1024x1024: eager with no sync, the graph replay
+    equal to it bit for bit, both timed in turns, and the reserved
+    memory its capture keeps;
 21. the bench (python3 -m elevenrender_tpu_torch.bench) at its full
     shape in a subprocess: it exits 0, its line parses with every number
     finite, no config5_error, and its device is this card; the line is
@@ -209,7 +217,34 @@ result line is printed):
     (CapturedCall.captures), every later step a replay; 5 + 5 launches a
     pass-1 replay and 0 a pass-2 replay by the accounting, each pass
     counted around it.  Reported: s per Adam step, rays/s, peak memory,
-    capture s.
+    capture s;
+23. the applications, each in a subprocess as a user runs it (python3 -m
+    elevenrender_tpu_torch.<name>, on the card): (a) render_config5 at
+    999,698 tris and 1024x1024 with SPP=48 CKPT=16, once straight through
+    and once killed by SIGTERM right after the progress line of its
+    16-sample checkpoint, then run again with RESUME=1, one process
+    after the other: the two final .npz equal bit for bit (passes,
+    samples, rng); (b)
+    render_config5 at its defaults (1000 samples, CKPT=64), SIGTERM after
+    the 320-sample checkpoint's line, then resumed to 1000.  Gates: the
+    killed run exits 0 with 320 samples at every pixel in its .npz, the
+    second prints "resumed from ... at 320", the final .npz holds 1000 at
+    every pixel and finite passes, the beauty PNG is 1024x1024, 5 + 5
+    launches a sample by each process's accounting; reported: set-up s,
+    ms/sample, s a checkpoint (the readback, the .npz and PNG in the
+    writer thread), the checkpoints' share of the wall, the wall to 1000
+    samples, peak memory; (c) denoise_showcase on (b)'s final .npz: its
+    float image within rtol 1e-4 / atol 1e-5 of the CPU denoiser on the
+    same passes on >= 99.9% of values; its s; (d) demo at its defaults
+    (256x256, 32 samples): six PNGs of the right size, the float passes
+    behind them finite; 5 + 5
+    launches a sample on the heightfield, none on the Cornell box; each
+    scene's s; (e) multichip_bench at its defaults (1024x1024, grid 182,
+    4 samples): one row at N = 1 and its summary line, 5 + 5 launches a
+    sample on its rank; its ms/sample beside phase 19's 1-rank replay.
+    (a) and (b) add to row 3's launches, (d) and (e) to rows 1-2.
+    ``resume_check`` and ``applications_path`` with small sizes and
+    ``device="cpu"`` rehearse it on the CPU.
 The last two lines are one JSON object with the kernels' numbers (and
 the server path's, the host runtime's and the sharded path's) and one
 with the result: {"ok": true, "device": {...}}.
@@ -726,11 +761,15 @@ def server_path(res=1024, spp=16, target2=48, grid=182, device=""):
     return out
 
 
-def host_runtime_path(grid=708):
-    """Phase 19 (a): the heightfield's tris (grid 708: config 5's
-    999,698) through the C++ SAH build and the numpy build, both timed;
-    fails unless perm, node ranges and max leaf are equal and the boxes
-    bit-equal."""
+# Phase 19 (a)'s heightfield: 318,402 tris, a third of config 5's
+# 999,698, where the numpy build takes about 15 s, not 37-52 s.
+HOST_GRID = 400
+
+
+def host_runtime_path(grid=HOST_GRID):
+    """Phase 19 (a): the heightfield's tris (grid HOST_GRID) through the
+    C++ SAH build and the numpy build, both timed; fails unless perm,
+    node ranges and max leaf are equal and the boxes bit-equal."""
     import numpy as np
 
     from elevenrender_tpu_torch.ops.bvh import build_bvh
@@ -823,6 +862,62 @@ def sharded_path(grid=182, res=1024, spp=4, grad_res=64, grad_spp=2,
                                   "ms_per_rank": [r[1]["ms"] for r in ranks],
                                   "ms_alone": alone["ms"]}
     return out
+
+
+# Phase 9 (b): config 5's rows rendered on the card and the CPU, and the
+# samples each row is followed for.
+STRIPE_ROWS, STRIPE_SAMPLES = (256, 2), 6
+
+
+def stripe_card_vs_cpu(label, cfg, ir_, rows=STRIPE_ROWS,
+                       samples=STRIPE_SAMPLES, device="cuda"):
+    """Phase 9 (b): the rows [rows[0], rows[0] + rows[1]) of ``cfg``'s
+    image at full width, rendered eagerly one sample at a time on
+    ``device`` and on the CPU (``integrator.render_sample`` at their
+    pixel offset, from the same fresh state).  After each sample: the
+    share of pixels whose accumulated beauty agrees within rtol 1e-4 /
+    atol 1e-5, and the share whose RNG state is equal (a pixel's RNG
+    advances once per draw of a path that is alive, so an equal state
+    after k samples means k paths of the same length and branches).
+    Fails unless the first sample agrees on >= 99% of pixels, as phase
+    9 (a) gates.  Returns the two lists."""
+    import numpy as np
+    import torch
+
+    from elevenrender_tpu_torch.convert import ir_to
+    from elevenrender_tpu_torch.render import integrator
+
+    off, n = rows[0] * cfg.x_res, rows[1] * cfg.x_res
+    start = integrator.init_state(cfg, "cpu")
+    start = {"passes": start["passes"][:, off:off + n].clone(),
+             "samples": start["samples"][off:off + n].clone(),
+             "rng": start["rng"][off:off + n].clone()}
+    states = {"cpu": start,
+              device: {k: v.to(device) for k, v in start.items()}}
+    irs = {"cpu": ir_to(ir_, "cpu"), device: ir_}
+    close, same_rng = [], []
+    t0 = time.time()
+    with torch.no_grad():
+        for _ in range(samples):
+            for dev, st in states.items():
+                states[dev] = integrator.render_sample(cfg, irs[dev], st, off,
+                                                       device=dev)
+            a, b = (states[d]["passes"][0, :, :3].cpu().numpy()
+                    for d in (device, "cpu"))
+            close.append(float(np.isclose(a, b, rtol=1e-4, atol=1e-5)
+                               .all(-1).mean()))
+            same_rng.append(float((states[device]["rng"].cpu()
+                                   == states["cpu"]["rng"]).float().mean()))
+    print(f"[parity] {label} rows {rows[0]}-{rows[0] + rows[1] - 1} "
+          f"({n} pixels) at full width, card vs CPU, samples 1-{samples}: "
+          f"pixels within rtol 1e-4 / atol 1e-5 "
+          f"{[round(x, 4) for x in close]}, RNG state equal "
+          f"{[round(x, 4) for x in same_rng]} ({time.time() - t0:.1f} s)")
+    if close[0] < 0.99:
+        fail(f"{label}: the card and the CPU agree on {close[0] * 100:.2f}% "
+             f"of the rows' pixels after one sample")
+    return {"rows": list(rows), "pixels_close": close,
+            "rng_equal": same_rng}
 
 
 def make_target(cfg, ir_, device):
@@ -1050,20 +1145,6 @@ def gradient_at_full_width(cfg, ir_, launch_log, prof):
              f"per replay in profile_grad's child "
              f"{out['launches_profiled_in_child']}; expected 5 + 5 a "
              f"pass-1 replay, 0 a pass-2 replay, 5 + 5 a re-traced one")
-    # (h) 64 samples, bench.py's headline shape, once by replay.
-    torch.cuda.reset_peak_memory_stats()
-    (loss64, grads64), s64 = profile_step.wall(
-        grad_mod.fwd_bwd_step_accum, cfg, ir_, target, 64)
-    out["n64"] = {"s": s64, "rays_per_s": rays * 64 / s64,
-                  "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-                  "reserved_mib": torch.cuda.memory_reserved() / 2**20,
-                  "loss": float(loss64)}
-    if not (all(bool(torch.isfinite(v).all())
-                for v in grads64["materials"].values())
-            and float(grads64["materials"]["albedo"].abs().sum()) > 0):
-        fail("gradient path, 64 samples: gradients not finite and "
-             "non-zero")
-    del grads64
     g, e = prof["graph"], prof["eager"]
     print(f"[gradient] fwd_bwd_step_accum {res}x{res}, "
           f"{cfg.max_bounces} bounces, {n} samples, material_fetch="
@@ -1101,14 +1182,9 @@ def gradient_at_full_width(cfg, ir_, launch_log, prof):
           f"{out['eager_peak_mib']:.0f} eager; the halved albedo "
           f"replayed the same captures, within "
           f"{out['new_values_gap']:.3g} of eager's")
-    print(f"[gradient] 64 samples by replay: {s64:.3f} s per fwd+bwd, "
-          f"{out['n64']['rays_per_s']:.4g} rays/s, peak allocated "
-          f"{out['n64']['peak_mib']:.0f} MiB, reserved "
-          f"{out['n64']['reserved_mib']:.0f} MiB, loss "
-          f"{out['n64']['loss']:.8f}")
     launches = {("near", 0): counted1}
     launch_log.append(("gradient path", {DEFAULT: 10 * n}, variants1))
-    # (i) Every other (order, leaf_aabb) variant, 2 samples by replay,
+    # (h) Every other (order, leaf_aabb) variant, 2 samples by replay,
     # its captures freed after it.
     nv = 2
     base_loss, base_grads = grad_mod.fwd_bwd_step_accum(cfg, ir_, target,
@@ -1141,7 +1217,7 @@ def gradient_at_full_width(cfg, ir_, launch_log, prof):
               f"{nv} samples by replay: loss {float(v_loss):.8f} "
               f"(default {float(base_loss):.8f}), albedo gradient "
               f"differs by {gap:.3g}; {10 * nv} launches of this variant")
-    # (j) remat_bounces at 64x64, 4 samples, by replay.
+    # (i) remat_bounces at 64x64, 4 samples, by replay.
     cfg64 = cfg.replace(x_res=64, y_res=64)
     t64 = make_target(cfg64, ir_, "cuda")
     got = {}
@@ -1161,13 +1237,12 @@ def gradient_at_full_width(cfg, ir_, launch_log, prof):
     return out, launches
 
 
-def config5_gradient(cfg5, ir5, launch_log, prof):
+def config5_gradient(cfg5, ir5, launch_log):
     """Phase 14, config 5: fwd_bwd_step_accum at 999,698 tris, 1024x1024,
     4 samples, by replay after a first call that captures: finite,
-    non-zero gradients, 5 + 5 launches a pass-1 replay and 0 a pass-2
-    replay by the accounting and by the profiler (``prof``,
-    profile_step's profile of 1 sample); its s and peak memory.
-    Appends its launches by variant to ``launch_log``."""
+    non-zero gradients, 5 + 5 launches a sample over both passes by the
+    accounting (pass 1's 5 + 5, so none in pass 2); its s and peak
+    memory.  Appends its launches by variant to ``launch_log``."""
     import torch
 
     from elevenrender_tpu_torch import profile_step
@@ -1186,19 +1261,13 @@ def config5_gradient(cfg5, ir5, launch_log, prof):
     counted = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
     variants = dict(tr.variant_launches)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    # The launches of one replay of each pass by the profiler, one
-    # sample, in profile_grad's child, as in gradient_at_full_width.
-    prof1, prof2 = (tuple(prof["graph"][k]["launches"])
-                    for k in ("pass1", "pass2"))
     g = grads["materials"]
     finite = all(bool(torch.isfinite(v).all()) for v in g.values())
     nonzero = [k for k, v in g.items() if float(v.abs().sum()) > 0]
     out = {"samples": n, "first_s": first_s, "s": s,
            "rays_per_s": 2 * cfg5.max_bounces * res * res * n / s,
            "peak_mib": peak, "loss": float(loss),
-           "launches_counted": counted,
-           "launches_profiled_in_child": {"pass1": prof1, "pass2": prof2},
-           "nonzero_leaves": nonzero, "turns": prof}
+           "launches_counted": counted, "nonzero_leaves": nonzero}
     print(f"[gradient] config 5 ({ir5['tris']['verts'].shape[0]} tris, "
           f"textures, a point light) fwd_bwd_step_accum {res}x{res}, "
           f"{n} samples by replay: {s:.3f} s per fwd+bwd "
@@ -1206,13 +1275,12 @@ def config5_gradient(cfg5, ir5, launch_log, prof):
           f"warm-ups and captures, {first_s:.3f} s), peak allocated "
           f"{peak:.0f} MiB, loss {float(loss):.8f}, finite {finite}, "
           f"non-zero leaves {nonzero}; launches (closest-hit, any-hit) "
-          f"counted {counted}, profiled per replay in profile_grad's "
-          f"child pass 1 {prof1}, pass 2 {prof2}")
+          f"counted {counted}")
     if not (finite and nonzero and bool(torch.isfinite(loss))):
         fail("config 5 gradient: not finite and non-zero")
-    if counted != (5 * n, 5 * n) or prof1 != (5, 5) or prof2 != (0, 0):
-        fail(f"config 5 gradient: launches counted {counted}, profiled "
-             f"{prof1} / {prof2} per replay")
+    if counted != (5 * n, 5 * n):
+        fail(f"config 5 gradient: launches counted {counted}, expected "
+             f"5 + 5 a sample")
     launch_log.append(("config 5 gradient", {DEFAULT: 10 * n}, variants))
     drop_captures(ir5)
     return out
@@ -1428,6 +1496,328 @@ def bench_phase(card: str, timeout: int = 600) -> dict:
     if extra.get("device") != card:
         fail(f"the bench ran on {extra.get('device')!r}, not {card!r}")
     return line
+
+
+# Phase 23 (a): the resume check's samples and checkpoint interval; (b):
+# the production render's SIGTERM comes after this checkpoint's line.
+RESUME_SPP, RESUME_CKPT = 48, 16
+PRODUCTION_KILL_AT = 320
+# The applications' settings, taken from this process's environment by
+# no application run.
+APP_SETTINGS = ("GRID", "RES", "SPP", "CKPT", "OUT", "RESUME")
+
+
+def run_app(module, args=(), env=None, kill_after=None, timeout=900):
+    """``python3 -m elevenrender_tpu_torch.<module> *args`` from this
+    tree's root, in a subprocess with this process's environment but the
+    applications' settings, plus ``env``.  ``kill_after``: SIGTERM is sent
+    once, right after the first line of its standard output that holds
+    this text.  Its standard error passes through.  Returns (its standard
+    output's lines, its wall s); fails unless it exits 0 within
+    ``timeout`` s."""
+    import signal
+    import threading
+    base = {k: v for k, v in os.environ.items() if k not in APP_SETTINGS}
+    t0 = time.time()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"elevenrender_tpu_torch.{module}",
+             *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={**base, **(env or {})}, stdout=subprocess.PIPE, stderr=err,
+            text=True)
+        timer = threading.Timer(timeout, proc.kill)
+        timer.start()
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                if kill_after is not None and kill_after in line:
+                    proc.send_signal(signal.SIGTERM)
+                    kill_after = None
+            rc = proc.wait()
+        finally:
+            timer.cancel()
+        err.seek(0)
+        sys.stderr.write(err.read()[-20000:])
+    wall = time.time() - t0
+    if wall >= timeout:
+        fail(f"{module} did not end within {timeout} s")
+    if rc != 0:
+        fail(f"{module} exited {rc}; its last lines: {lines[-5:]}")
+    return lines, wall
+
+
+def measured_line(lines, label):
+    """The ``measured {...}`` line of a render_config5 run."""
+    got = [ln.split("] measured ", 1)[1] for ln in lines
+           if "] measured " in ln]
+    if len(got) != 1:
+        fail(f"{label}: {len(got)} measured lines")
+    return json.loads(got[0])
+
+
+def load_npz(path):
+    import numpy as np
+    data = np.load(path)
+    return {k: data[k] for k in data.files}
+
+
+def config5_run(label, out, resume_flag, c5_env=None, env=None, kill=None,
+                device=""):
+    """One ``render_config5`` process (``run_app``) with OUT and RESUME:
+    (its lines, its wall s, its ``measured`` line).  On the card it fails
+    unless the process launched 5 + 5 traversal kernels a sample by its
+    own accounting."""
+    lines, wall = run_app("render_config5", ("--device", device) if device
+                          else (), {**(c5_env or {}), **(env or {}),
+                                    "OUT": out, "RESUME": resume_flag},
+                          kill_after=kill)
+    m = measured_line(lines, label)
+    n = m["samples_rendered"]
+    if not device and m["launches"] != [5 * n, 5 * n]:
+        fail(f"{label}: launches {m['launches']} over {n} samples, "
+             f"expected 5 + 5 per sample")
+    return lines, wall, m
+
+
+def flushed(lines, label):
+    """The sample count that a killed run's SIGTERM line flushed."""
+    got = [re.search(r"flushing snapshot from (\d+)", ln) for ln in lines]
+    got = [int(g.group(1)) for g in got if g]
+    if len(got) != 1:
+        fail(f"{label}: no single SIGTERM flush line")
+    return got[0]
+
+
+def resume_check(c5_env=None, resume=(RESUME_SPP, RESUME_CKPT), device=""):
+    """Phase 23 (a): ``render_config5`` with SPP, CKPT = ``resume``, once
+    straight through, then once killed by SIGTERM right after its first
+    checkpoint's progress line and run again with RESUME=1: the two final
+    ``.npz`` must be equal bit for bit.  The three processes run one
+    after the other.  Returns (its numbers, its launches [closest-hit,
+    any-hit])."""
+    import shutil
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="phase23a_")
+    env = {"SPP": str(resume[0]), "CKPT": str(resume[1])}
+    straight, killed = os.path.join(tmp, "straight"), os.path.join(tmp, "a")
+    runs = [config5_run("(a) straight", straight, "0", c5_env, env,
+                        device=device)[2]]
+    lines, _, m = config5_run("(a) killed", killed, "0", c5_env, env,
+                              f"] {resume[1]}/{resume[0]} samples", device)
+    runs.append(m)
+    at = flushed(lines, "(a) killed")
+    if at != resume[1] or not (load_npz(f"{killed}.npz")["samples"]
+                               == at).all():
+        fail(f"(a): the killed run flushed {at} samples, not {resume[1]}")
+    lines, _, m = config5_run("(a) resumed", killed, "1", c5_env, env,
+                              device=device)
+    runs.append(m)
+    if not any(f"resumed from {killed}.npz at {at} samples" in ln
+               for ln in lines):
+        fail("(a): the second run did not resume")
+    want, got = load_npz(f"{straight}.npz"), load_npz(f"{killed}.npz")
+    if set(want) != set(got) or not all(
+            np.array_equal(want[k].view(np.uint32), got[k].view(np.uint32))
+            for k in want):
+        fail("(a): the resumed render differs from the straight one")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[config5 render] (a) {resume[0]} samples straight and killed at "
+          f"{at} then resumed: the final .npz equal bit for bit (passes, "
+          f"samples, rng)")
+    launches = np.sum([m["launches"] for m in runs], axis=0)
+    return ({"spp": resume[0], "ckpt": resume[1], "killed_at": at,
+             "bit_equal": True}, launches.tolist())
+
+
+def applications_path(c5_env=None, spp=1000, kill_at=PRODUCTION_KILL_AT,
+                      demo_args=(), scaling_env=None, device=""):
+    """Phase 23 (b)-(e): the applications, each in a subprocess.
+    ``device`` "" runs them on the card, as users do (no ``--device``);
+    "cpu" with small ``c5_env`` (GRID, RES, SPP, CKPT), ``spp`` and
+    ``kill_at``, ``demo_args`` and ``scaling_env`` rehearses it on the
+    CPU, where the launch gates are left out (the plain walker launches
+    no kernel).  Returns the numbers and the launches: "config5" (row
+    3), "rows12" (rows 1-2)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from elevenrender_tpu_torch.render import denoise as dn
+    from elevenrender_tpu_torch.utils.image import read_png
+
+    dev = ("--device", device) if device else ()
+    card = not device
+    res = int((c5_env or {}).get("RES", 1024))
+    tmp = tempfile.mkdtemp(prefix="phase23_")
+    nums = {}
+
+    # (b) the production render: killed after the kill_at checkpoint,
+    # then resumed to spp.
+    prod = os.path.join(tmp, "config5")
+    lines1, wall1, m1 = config5_run("(b) killed", prod, "0", c5_env,
+                                    kill=f"] {kill_at}/{spp} samples",
+                                    device=device)
+    at = flushed(lines1, "(b) killed")
+    killed = load_npz(f"{prod}.npz")
+    if at != kill_at or not (killed["samples"] == kill_at).all():
+        fail(f"(b): the killed run's .npz does not hold {kill_at} samples "
+             f"at every pixel")
+    lines2, wall2, m2 = config5_run("(b) resumed", prod, "1", c5_env,
+                                    device=device)
+    if not any(f"resumed from {prod}.npz at {kill_at} samples" in ln
+               for ln in lines2):
+        fail(f"(b): the second run did not resume at {kill_at}")
+    final = load_npz(f"{prod}.npz")
+    if not (final["samples"] == spp).all() or not np.isfinite(
+            final["passes"]).all():
+        fail(f"(b): the final .npz does not hold {spp} finite samples")
+    beauty = read_png(f"{prod}_beauty.png")
+    if beauty.shape != (res, res, 4):
+        fail(f"(b): the beauty PNG is {beauty.shape}")
+    runs = [m1, m2]
+    ckpt_s = {k: [x for m in runs for x in m[k]]
+              for k in ("readback_s", "npz_s", "png_s")}
+    nums["production"] = {
+        "spp": spp, "killed_at": kill_at,
+        "setup_s": [m["setup_s"] for m in runs],
+        "first_sample_s": [m["first_sample_s"] for m in runs],
+        "ms_per_sample": [m["ms_per_sample"] for m in runs],
+        "samples_rendered": [m["samples_rendered"] for m in runs],
+        "checkpoints": [m["checkpoints"] for m in runs],
+        "readback_s_mean": float(np.mean(ckpt_s["readback_s"])),
+        "npz_s_mean": float(np.mean(ckpt_s["npz_s"])),
+        "png_s_mean": float(np.mean(ckpt_s["png_s"])),
+        "waited_for_writer_s": [m["waited_for_writer_s"] for m in runs],
+        "final_write_s": [m["final_write_s"] for m in runs],
+        "checkpoint_share": [m["checkpoint_share"] for m in runs],
+        "render_wall_s": [m["wall_s"] for m in runs],
+        "process_wall_s": [wall1, wall2],
+        "wall_to_spp_s": wall1 + wall2,
+        "peak_mib": [m["peak_mib"] for m in runs],
+        "launches": [m["launches"] for m in runs]}
+    # Beside the repo's 1000-spp checkpoint of the JAX script (this scene
+    # and seed rule, rendered on a TPU by the JAX package of its day):
+    # how far apart the two images are, against how far apart two
+    # independent renders of spp samples would be.  That spread comes from
+    # this render's own two independent parts: the killed run's first
+    # kill_at samples and the resumed run's last spp - kill_at.  An equal
+    # RNG state tells a pixel whose every path drew alike.  Each apart
+    # for the sky (pixels that never hit the terrain) and the terrain.
+    # Reported, not gated.
+    jax_ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            ".runlogs", "config5.npz")
+    if os.path.exists(jax_ckpt):
+        ref = load_npz(jax_ckpt)
+        if (ref["passes"].shape == final["passes"].shape
+                and (ref["samples"] == spp).all()):
+            got, want = final["passes"][0, :, :3], ref["passes"][0, :, :3]
+            first = killed["passes"][0, :, :3]
+            rest = (spp * got - kill_at * first) / (spp - kill_at)
+            to_spp = np.sqrt((2 / spp) / (1 / kill_at + 1 / (spp - kill_at)))
+            sky = np.abs(final["passes"][2, :, :3]).sum(-1) == 0
+            same = final["rng"] == ref["rng"]
+            cmp = {"pixels_within_rtol_1e-2": float(np.isclose(
+                       got, want, rtol=1e-2, atol=1e-3).all(-1).mean()),
+                   "sky_share": float(sky.mean()),
+                   "mean_rgb": got.mean(0).tolist(),
+                   "jax_mean_rgb": want.mean(0).tolist()}
+            for part, px in (("sky", sky), ("terrain", ~sky)):
+                if not px.any():
+                    continue
+                scale = float(np.abs(want[px]).mean())
+                cmp[part] = {
+                    "rng_equal": float(same[px].mean()),
+                    "mean_abs_diff_over_mean":
+                        float(np.abs(got[px] - want[px]).mean()) / scale,
+                    "independent_renders_mean_abs_diff_over_mean": float(
+                        np.abs(first[px] - rest[px]).mean() * to_spp)
+                        / scale}
+            nums["production"]["beauty_vs_jax_checkpoint"] = cmp
+            print(f"[config5 render] (b) beauty beside the JAX script's "
+                  f"{spp}-spp checkpoint: "
+                  f"{nums['production']['beauty_vs_jax_checkpoint']}")
+    p = nums["production"]
+    print(f"[config5 render] (b) {spp} samples at {res}x{res}: killed after "
+          f"{kill_at} (exit 0, {kill_at} at every pixel), resumed to {spp} "
+          f"(finite); set-up {p['setup_s']} s, first sample "
+          f"{p['first_sample_s']} s, {p['ms_per_sample']} ms/sample by "
+          f"replay; a checkpoint: readback {p['readback_s_mean']:.3f} s "
+          f"(the card idle), .npz {p['npz_s_mean']:.2f} s and PNG "
+          f"{p['png_s_mean']:.2f} s in the writer thread; the checkpoints' "
+          f"share of the wall {p['checkpoint_share']}; wall to {spp} spp "
+          f"{p['wall_to_spp_s']:.1f} s in two processes; peak "
+          f"{p['peak_mib']} MiB; launches {p['launches']}")
+
+    # (c) the denoised showcase of (b)'s checkpoint, against the CPU.
+    shown, raw = os.path.join(tmp, "denoised.png"), os.path.join(tmp, "d.npy")
+    lines, wall = run_app("denoise_showcase", (*dev, "--raw", raw),
+                          {"CKPT": f"{prod}.npz", "OUT": shown})
+    img = np.load(raw)
+    t0 = time.time()
+    with torch.no_grad():
+        planes = [torch.from_numpy(final["passes"][i, :, :3].reshape(
+            res, res, 3).copy()) for i in range(3)]
+        cpu = dn.nlm_denoise_ms(planes[0], planes[2], planes[1]).numpy()
+    cpu_s = time.time() - t0
+    close = float(np.isclose(img, cpu, rtol=1e-4, atol=1e-5).mean())
+    if close < 0.999 or read_png(shown).shape != (res, res, 4):
+        fail(f"(c): the showcase agrees with the CPU denoiser on {close:.5f} "
+             f"of values (gate 0.999)")
+    nums["showcase"] = {"wall_s": wall, "line": lines[-1],
+                        "close_to_cpu": close, "cpu_s": cpu_s}
+    print(f"[showcase] (c) {lines[-1]}; {wall:.1f} s with the process; "
+          f"{close:.5f} of values within rtol 1e-4 / atol 1e-5 of the CPU "
+          f"denoiser ({cpu_s:.2f} s)")
+
+    # (d) the demo at its defaults.
+    outdir = os.path.join(tmp, "demo")
+    lines, wall = run_app("demo", (outdir, *demo_args, *dev))
+    scenes = json.loads(lines[-1])["demo"]
+    size = int(demo_args[0]) if demo_args else 256
+    spp_d = int(demo_args[1]) if len(demo_args) > 1 else 32
+    for name in ("cornell", "heightfield"):
+        if not scenes[name]["finite"]:
+            fail(f"(d): {name}'s passes are not finite")
+        for suffix in ("", "_normal", "_denoised"):
+            png = read_png(os.path.join(outdir, f"{name}{suffix}.png"))
+            if png.shape != (size, size, 4):
+                fail(f"(d): {name}{suffix}.png is {png.shape}")
+    rows12 = np.array(scenes["heightfield"]["launches"], np.int64)
+    if card and (scenes["cornell"]["launches"] != [0, 0]
+                 or list(rows12) != [5 * spp_d, 5 * spp_d]):
+        fail(f"(d): launches {scenes}, expected none for the Cornell box "
+             f"(brute force) and 5 + 5 per sample for the heightfield")
+    nums["demo"] = {"wall_s": wall, "scenes": scenes}
+    print(f"[demo] (d) {size}x{size}, {spp_d} samples: six PNGs; "
+          + "; ".join(f"{k} {v['s']:.1f} s, launches {v['launches']}"
+                      for k, v in scenes.items())
+          + f"; {wall:.1f} s with the process")
+
+    # (e) the scaling harness at its defaults: one row on one card.
+    lines, wall = run_app("multichip_bench", dev, scaling_env)
+    parsed = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    rows = [r for r in parsed if "devices" in r]
+    summary = [r for r in parsed if "summary" in r]
+    if ([r["devices"] for r in rows] != [1] or len(summary) != 1
+            or summary[0]["platform"] != ("gpu" if card else "cpu")):
+        fail(f"(e): rows {rows}, summary {summary}")
+    scaled = summary[0]["launches_rank0"]["1"]
+    samples_e = 1 + int((scaling_env or {}).get("SPP", 4))
+    if card and scaled != [5 * samples_e, 5 * samples_e]:
+        fail(f"(e): launches {scaled} over {samples_e} samples")
+    rows12 += scaled
+    nums["scaling"] = {"wall_s": wall, "rows": rows, "summary": summary[0]}
+    print(f"[scaling] (e) {json.dumps(rows[0])}; {wall:.1f} s with the "
+          f"spawn; launches {scaled}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    nums["launches"] = {
+        "config5": np.sum([m["launches"] for m in runs], axis=0).tolist(),
+        "rows12": rows12.tolist()}
+    return nums
 
 
 def main():
@@ -2539,6 +2929,7 @@ def main():
                                                      compat=False)
     card_vs_cpu("textured heightfield (7,938 tris, point light)",
                 small5.replace(max_bounces=5), ir_small)
+    stripe5 = stripe_card_vs_cpu("config5 (999,698 tris)", cfg5, ir5)
     phase_done("phase 9", t0)
 
     # ---- 10. kernel timing at config 5's shapes -----------------------------
@@ -2591,12 +2982,10 @@ def main():
     t0 = time.time()
     # Both paths' profiles first, each in a child process.
     grad_prof = profile_step.profile_grad(cfg, ir, GRAD_SAMPLES, top=8)
-    grad_prof5 = profile_step.profile_grad(cfg5, ir5, 1, top=8)
     launch_log = []
     gradient, grad_launches = gradient_at_full_width(cfg, ir, launch_log,
                                                      grad_prof)
-    gradient["config5"] = config5_gradient(cfg5, ir5, launch_log,
-                                           grad_prof5)
+    gradient["config5"] = config5_gradient(cfg5, ir5, launch_log)
     for label, expected, counted in launch_log:
         add_path_launches(label, expected, counted)
     phase_done("phase 14", t0)
@@ -2630,6 +3019,7 @@ def main():
     print(f"[sweep] launches by variant over both scenes: "
           f"{ {str(k): v for k, v in sorted(sweep_launches.items())} }")
     phase_done("phase 16", t0)
+    ir5_host = ir_to(ir5, "cpu")
     del ir5, walk5
 
     # ---- 17. sort_impl="counting" on the main path ---------------------------
@@ -2771,17 +3161,15 @@ def main():
     # ---- 20. the compiled dispatch: CUDA graphs against eager ----------------
     t0 = time.time()
     dispatch_numbers = {"main": dispatch_path("main", cfg, ir, 4)}
-    # Config 5 built again (dropped after phase 16, so that phases 17-19
-    # run without its IR and cached capture on the card).
-    _, config5_again, ir5 = textured_heightfield_scene(grid=708, res=1024,
-                                                       compat=False)
-    if config5_again.replace(max_bounces=5, compat=False) != cfg5:
-        fail("config 5 built again has another config")
+    # Config 5 back on the card from its host copy (off the card after
+    # phase 16, so that phases 17-19 run without its IR and cached
+    # capture there).
+    ir5 = ir_to(ir5_host, "cuda")
+    del ir5_host
     dispatch_numbers["config5"] = dispatch_path("config5", cfg5, ir5, 4)
-    # (d) of both paths, each in a child process.
-    for label, cfg_, ir_ in (("main", cfg, ir), ("config5", cfg5, ir5)):
-        dispatch_timed(label, dispatch_numbers[label],
-                       profile_step.profile_forward(cfg_, ir_, 4, top=8))
+    # (d) of the main path, in a child process.
+    dispatch_timed("main", dispatch_numbers["main"],
+                   profile_step.profile_forward(cfg, ir, 4, top=8))
     del ir5
     ref = Renderer(cfg, ir)
     ref.step(4)
@@ -2795,6 +3183,20 @@ def main():
     bench = bench_phase(card)
     print(f"[bench] {json.dumps(bench)}")
     phase_done("phase 21", t0)
+
+    # ---- 23. the applications: config 5's production render, the showcase,
+    # the demo, the scaling harness ------------------------------------------
+    t0 = time.time()
+    resumed, resume_launches = resume_check()
+    apps = applications_path()
+    apps["resume_check"] = resumed
+    apps["launches"]["config5"] = [
+        a + b for a, b in zip(apps["launches"]["config5"], resume_launches)]
+    print(f"[scaling] 1 rank: {apps['scaling']['rows'][0]['ms_per_sample']} "
+          f"ms/sample by the harness (its slowest rank), beside phase 19's "
+          f"1-rank replay {shard['n1_nccl']['ranks'][0]['ms_per_sample']:.1f}")
+    app_launches = apps["launches"]
+    phase_done("phase 23", t0)
 
     src = "elevenrender_tpu_torch/csrc/bvh_traverse.cu"
     row12 = "elevenrender_tpu/ops/bvh_pallas.py:102"
@@ -2834,14 +3236,15 @@ def main():
                for k, v in numbers.get("launches_per_replay", {}).items()}
         out.update({f"launches_per_gradient_{k}_replay_profiled_in_child":
                     v[i] for k, v in
-                    numbers["launches_profiled_in_child"].items()})
+                    numbers.get("launches_profiled_in_child", {}).items()})
         return out
 
     c5_grad = gradient["config5"]["launches_counted"]
     kern = [
         entry("bvh_traverse closest-hit", row12,
               main_closest + grad_launches[("near", 0)][0] + srv_closest
-              + inv_launches[0], err12["closest"], timing["closest_b1"],
+              + inv_launches[0] + app_launches["rows12"][0],
+              err12["closest"], timing["closest_b1"],
               against_v1(
                   timing["closest_b1"], False, depth,
                   {"ms_bounce0": timing["closest_b0"]["ms"],
@@ -2850,12 +3253,14 @@ def main():
                    "launches_gradient_path": grad_launches[("near", 0)][0],
                    "launches_server_path": srv_closest,
                    "launches_inverse_path": inv_launches[0],
+                   "launches_demo_and_scaling_harness":
+                       app_launches["rows12"][0],
                    "launches_per_graph_replay":
                        dispatch_numbers["main"]["profiled"][0],
                    **grad_replay_launches(gradient, 0)})),
         entry("bvh_traverse any-hit", row12,
               main_any_hit + grad_launches[("near", 0)][1] + srv_any_hit
-              + inv_launches[1],
+              + inv_launches[1] + app_launches["rows12"][1],
               err12["any_hit"], timing["any_hit_b1"], against_v1(
                   timing["any_hit_b1"], True, depth,
                   {"launches_forward_path": main_any_hit,
@@ -2863,26 +3268,32 @@ def main():
                        grad_launches[("near", 0)][1],
                    "launches_server_path": srv_any_hit,
                    "launches_inverse_path": inv_launches[1],
+                   "launches_demo_and_scaling_harness":
+                       app_launches["rows12"][1],
                    "launches_per_graph_replay":
                        dispatch_numbers["main"]["profiled"][1],
                    **grad_replay_launches(gradient, 1)})),
         entry("bvh_traverse closest-hit, stream residency (config 5)", row3,
-              c5_closest + c5_grad[0], err3["closest"],
+              c5_closest + c5_grad[0] + app_launches["config5"][0],
+              err3["closest"],
               timing5["closest_b1"], against_v1(
                   timing5["closest_b1"], False, depth5,
                   {"ms_bounce0": timing5["closest_b0"]["ms"],
                    "ms_v1_bounce0": timing5["closest_b0"]["ms_v1"],
                    "launches_forward_path": c5_closest,
                    "launches_gradient_path": c5_grad[0],
+                   "launches_production_render": app_launches["config5"][0],
                    "launches_per_graph_replay":
                        dispatch_numbers["config5"]["profiled"][0],
                    **grad_replay_launches(gradient["config5"], 0)})),
         entry("bvh_traverse any-hit, stream residency (config 5, merged "
-              "2N-ray shadow launch)", row3, c5_any_hit + c5_grad[1],
+              "2N-ray shadow launch)", row3,
+              c5_any_hit + c5_grad[1] + app_launches["config5"][1],
               err3["any_hit"], timing5["any_hit_b1"],
               against_v1(timing5["any_hit_b1"], True, depth5, {
                   "launches_forward_path": c5_any_hit,
                   "launches_gradient_path": c5_grad[1],
+                  "launches_production_render": app_launches["config5"][1],
                   "launches_per_graph_replay":
                       dispatch_numbers["config5"]["profiled"][1],
                   **grad_replay_launches(gradient["config5"], 1)})),
@@ -3032,7 +3443,10 @@ def main():
                       "server_path": server_numbers,
                       "host_runtime": host, "sharding": shard,
                       "dispatch": dispatch_numbers, "gradient": gradient,
-                      "inverse": inverse, "profile_child": profile_child}))
+                      "inverse": inverse, "profile_child": profile_child,
+                      "config5_rows_card_vs_cpu": stripe5,
+                      "applications": {k: v for k, v in apps.items()
+                                       if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

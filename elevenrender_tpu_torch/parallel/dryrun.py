@@ -150,16 +150,21 @@ def run_tasks(mesh: pm.PixelMesh, tasks: list) -> list:
     return out
 
 
-def _rank_main(rank, world, init_method, backend, device, tasks, results):
-    """One spawned rank: join the group, run the tasks, report."""
+def _rank_main(rank, world, init_method, backend, device, tasks, results,
+               work):
+    """One spawned rank: join the group, run ``work(mesh, tasks)``,
+    report."""
     import torch.distributed as dist
     if torch.device(device).type == "cpu":
-        # The ranks share the host's cores: one share each, not all.
-        torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+        # The ranks share the host's cores: one share each, not all, and
+        # no more than the threads this process starts with (its
+        # OMP_NUM_THREADS).
+        torch.set_num_threads(min(torch.get_num_threads(), max(
+            1, (os.cpu_count() or world) // world)))
     try:
         distributed.initialize(init_method, world, rank, backend, device)
         mesh = distributed.global_mesh(device)
-        results.put((rank, "ok", run_tasks(mesh, tasks)))
+        results.put((rank, "ok", work(mesh, tasks)))
     except BaseException:
         results.put((rank, "error", traceback.format_exc()))
         raise
@@ -170,9 +175,10 @@ def _rank_main(rank, world, init_method, backend, device, tasks, results):
 
 def run_ranks(tasks: list, world: int, device="cuda",
               backend: str | None = None, init_method: str | None = None,
-              timeout: float = JOIN_TIMEOUT_S) -> list:
-    """Spawn ``world`` ranks that each run ``run_tasks(mesh, tasks)`` and
-    return their results, by rank.  ``init_method`` defaults to TCP on a
+              timeout: float = JOIN_TIMEOUT_S, work=run_tasks) -> list:
+    """Spawn ``world`` ranks that each run ``work(mesh, tasks)`` (a
+    module-level function: the ranks import it by name) and return their
+    results, by rank.  ``init_method`` defaults to TCP on a
     free localhost port; ``backend`` to ``initialize``'s choice for
     ``device``.  A rank that fails, or has not reported within
     ``timeout`` seconds, ends the run: every rank still alive is killed
@@ -183,7 +189,7 @@ def run_ranks(tasks: list, world: int, device="cuda",
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, world, init_method, backend, str(device),
-                               tasks, results))
+                               tasks, results, work))
              for r in range(world)]
     for p in procs:
         p.start()

@@ -85,6 +85,27 @@ def find_device(name: str) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def checkpoint_state(data, config, device) -> dict:
+    """The accumulation state on ``device`` from a checkpoint's arrays
+    (``passes``, ``samples``, ``rng`` and, where the config counts rays,
+    ``ray_count``, 0 if the file has none), as this package and the JAX
+    package write them."""
+    state = {
+        "passes": torch.tensor(np.asarray(data["passes"], np.float32),
+                               device=device),
+        "samples": torch.tensor(np.asarray(data["samples"], np.int64),
+                                device=device),
+        "rng": torch.tensor(np.asarray(data["rng"], np.int64),
+                            device=device),
+    }
+    if config.count_rays:
+        state["ray_count"] = (
+            torch.tensor(np.asarray(data["ray_count"], np.float32),
+                         device=device) if "ray_count" in data
+            else torch.zeros((), device=device))
+    return state
+
+
 class Renderer:
     """Progressive path tracer over a built scene IR.  ``device`` None
     means ``find_device(config.device)``."""
@@ -282,16 +303,7 @@ class Renderer:
         if (int(data["x_res"]) != self.config.x_res
                 or int(data["y_res"]) != self.config.y_res):
             raise ValueError("checkpoint resolution mismatch")
-        state = {
-            "passes": torch.tensor(np.asarray(data["passes"], np.float32),
-                                   device=self.device),
-            "samples": torch.tensor(np.asarray(data["samples"], np.int64),
-                                    device=self.device),
-            "rng": torch.tensor(np.asarray(data["rng"], np.int64),
-                                device=self.device),
-        }
-        if self.config.count_rays:
-            state["ray_count"] = torch.zeros((), device=self.device)
+        state = checkpoint_state(data, self.config, self.device)
         self.state = state
         self._publish(state, self._record())
         log.info("Checkpoint loaded from %s", path)

@@ -37,6 +37,16 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(png)
 
 
+def gamma_png(rgb: np.ndarray) -> np.ndarray:
+    """[H, W, 3] float -> [H, W, 4] in [0, 1] for ``write_png``: |rgb| to
+    the power 1/2.2 with alpha 1, clipped, as the render and denoise
+    scripts write their images."""
+    h, w = rgb.shape[:2]
+    img = np.clip(np.abs(np.concatenate(
+        [rgb, np.ones((h, w, 1), np.float32)], -1)), 0.0, None) ** (1.0 / 2.2)
+    return np.clip(img, 0.0, 1.0)
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode 8-bit PNG -> [H, W, C] float32 in [0,1].  Supports color
     types 0/2/4/6, bit depth 8, no interlace."""

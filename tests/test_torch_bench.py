@@ -10,6 +10,8 @@ positive.  On the card ``chip_smoke.py`` runs the bench at its full
 shape.
 """
 
+import torch_threads  # first: torch's threads a worker
+
 import ast
 import json
 import math
@@ -64,6 +66,8 @@ def _last_line(capsys):
 def small(monkeypatch, tmp_path):
     for k, v in SMALL.items():
         monkeypatch.setenv(k, v)
+    # The config-5 stage's subprocess takes this worker's threads.
+    monkeypatch.setenv("OMP_NUM_THREADS", str(torch_threads.THREADS))
     monkeypatch.setattr(bench, "BASELINE", str(tmp_path / "absent.json"))
     return tmp_path
 

@@ -10,6 +10,8 @@ replaced by one that fails if entered.  The child's ``trace.json`` has
 the form of the one traced in the process, and the renderer ends in the
 same state, bit for bit."""
 
+import torch_threads  # first: torch's threads a worker
+
 import json
 import operator
 import os
@@ -45,7 +47,8 @@ def _trace(path):
     return json.load(open(path / "trace.json"))["traceEvents"]
 
 
-def test_call_in_child_returns_its_result_and_raises_its_error():
+def test_call_in_child_returns_its_result_and_raises_its_error(monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", str(torch_threads.THREADS))
     assert child.call_in_child(os.getpid) != os.getpid()
     with pytest.raises(RuntimeError, match="ZeroDivisionError"):
         child.call_in_child(operator.truediv, 1, 0)
@@ -64,6 +67,7 @@ def test_profile_traces_in_a_child_process(monkeypatch, tmp_path):
     reaches."""
     here, there = _renderer(), _renderer()
     here.profile(str(tmp_path / "here"), n_samples=3)
+    monkeypatch.setenv("OMP_NUM_THREADS", str(torch_threads.THREADS))
     monkeypatch.setattr(child, "traces_in_child", lambda device: True)
     monkeypatch.setattr(torch.profiler, "profile", _NoSession)
     there.profile(str(tmp_path / "there"), n_samples=3)

@@ -1,6 +1,8 @@
 """PyTorch port, core: the RNG streams and vector math against the JAX
 package, on the same numpy inputs.  RNG results must be bit-exact."""
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -9,6 +9,8 @@ the median must get right: an even count of lit values (where
 ``torch.nanmedian`` would return the lower middle value) and a frame with
 no lit pixel (floor 0)."""
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -30,6 +30,8 @@ holds the graph to the eager sample on the card).
     capture's counts out, ``add_counts`` adds them per replay.
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import gc
 import sys
 

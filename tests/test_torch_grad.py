@@ -22,6 +22,8 @@ order of the same sums); replay against re-trace: exactly equal (the
 same ops on the same values).
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import dataclasses
 import functools
 

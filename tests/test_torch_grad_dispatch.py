@@ -41,6 +41,8 @@ the card).
     lane agrees.
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import gc
 
 import numpy as np

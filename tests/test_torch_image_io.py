@@ -3,6 +3,8 @@ the PNG/HDR/BMP/TGA/JPEG decoders on ``tests/test_image_io.py``'s cases,
 each held to the JAX package's output exactly (bytes written, arrays
 read), and ``Texture.from_file`` against the JAX package's."""
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import numpy as np
 import pytest
 from PIL import Image

@@ -29,6 +29,8 @@
     relative; the port rounds each op as the op-by-op run does.
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import dataclasses
 import os
 

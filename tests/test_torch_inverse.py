@@ -20,6 +20,8 @@ forward-mode Jacobian at 2 bounces against reverse mode: within 1e-5 of
 the largest entry.
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import dataclasses
 
 import numpy as np
@@ -124,8 +126,16 @@ def test_gather_rows_jvp_equals_jax():
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
-def test_camera_scene_is_the_jax_scripts():
-    """``inverse_demo.camera_scene`` builds the JAX script's stage-2 IR."""
+def test_camera_scene_is_the_jax_scripts(monkeypatch):
+    """``inverse_demo.camera_scene`` builds the JAX script's stage-2 IR.
+    Each package's config records its own shader registry's version, a
+    count of the registrations this process made; both counts start
+    equal here, so that the configs do not depend on which other tests
+    ran in this worker before."""
+    from elevenrender_tpu.render import shaders as jax_shaders
+    from elevenrender_tpu_torch.render import shaders as t_shaders
+    monkeypatch.setattr(jax_shaders, "_VERSION", 0)
+    monkeypatch.setattr(t_shaders, "_VERSION", 0)
     config, ir = _jax_camera_scene(RES)
     want_cfg, want = _convert(config, ir)
     cfg, got = inv.camera_scene(RES, "cpu")

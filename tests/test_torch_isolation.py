@@ -2,6 +2,8 @@
 nor the JAX package, and the entry points never fall back to the CPU on
 their own."""
 
+from torch_threads import child_env  # first: torch's threads a worker
+
 import ast
 import os
 import subprocess
@@ -106,7 +108,7 @@ print("alone ok", len(text))
 """
     res = subprocess.run([sys.executable, "-c", _BLOCK + code],
                          cwd=tmp_path, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=300, env=child_env())
     assert res.returncode == 0, res.stderr
     assert "alone ok" in res.stdout
     assert sorted(os.listdir(tmp_path)) == ["build",
@@ -115,7 +117,8 @@ print("alone ok", len(text))
 
 def _run(code, **kw):
     return subprocess.run([sys.executable, "-c", _BLOCK + code], cwd=REPO,
-                          capture_output=True, text=True, timeout=300, **kw)
+                          capture_output=True, text=True, timeout=300,
+                          env=child_env(), **kw)
 
 
 def test_port_imports_and_renders_without_jax():
@@ -268,6 +271,33 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
     assert "CUDA" in res.stderr and "jax" not in res.stderr
+
+
+def test_the_applications_import_no_jax_and_refuse_without_a_card():
+    """``render_config5``, ``denoise_showcase``, ``demo`` and
+    ``multichip_bench``, with jax and the JAX package blocked from import:
+    each one's default device is the card, and without one each raises
+    before it builds, reads or writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    code = """
+import os
+from elevenrender_tpu_torch import (demo, denoise_showcase,
+                                    multichip_bench, render_config5)
+before = sorted(os.listdir("."))
+for mod in (render_config5, denoise_showcase, demo, multichip_bench):
+    try:
+        mod.main([])
+    except RuntimeError as e:
+        assert "cuda" in str(e), e
+        print("refused", mod.__name__.rsplit(".", 1)[1])
+assert sorted(os.listdir(".")) == before
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == [
+        w for name in ("render_config5", "denoise_showcase", "demo",
+                       "multichip_bench") for w in ("refused", name)]
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it():

@@ -13,6 +13,8 @@ with the host compiler, bound by ``ops/native.py``) is held to:
 The host compiler is in the test environment, so nothing here skips.
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import shutil
 
 import numpy as np

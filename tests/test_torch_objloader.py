@@ -7,6 +7,8 @@ stay below the JAX package's 2 MB threshold for its C++ tokenizer, so
 both sides run the Python tokenizer.  Every array is compared exactly.
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import dataclasses
 
 import numpy as np

@@ -8,6 +8,8 @@ atan2, log, pow) come from different libraries and may differ in the
 last ulps.  Integer results (texels, sort keys, permutations) are exact.
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

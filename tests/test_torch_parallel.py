@@ -27,6 +27,8 @@ the collectives' own timeout, so a lost rank fails the test instead of
 hanging it.
 """
 
+from torch_threads import children  # first: torch's threads a worker
+
 import dataclasses
 
 import numpy as np
@@ -73,9 +75,10 @@ def one_process():
 
 def _spawn(world, tmp_path_factory):
     store = tmp_path_factory.mktemp(f"store{world}") / "store"
-    return world, dryrun.run_ranks(TASKS, world, "cpu",
-                                   init_method=f"file://{store}",
-                                   timeout=JOIN_S)
+    with children():
+        return world, dryrun.run_ranks(TASKS, world, "cpu",
+                                       init_method=f"file://{store}",
+                                       timeout=JOIN_S)
 
 
 @pytest.fixture(scope="module")
@@ -270,14 +273,15 @@ def test_a_failing_rank_fails_the_run_within_its_deadline(tmp_path):
     ended too."""
     tasks = [{"kind": "render", "samples": 1, "scene": "no such scene",
               "res": RES}]
-    with pytest.raises(RuntimeError, match="no such scene"):
+    with children(), pytest.raises(RuntimeError, match="no such scene"):
         dryrun.run_ranks(tasks, 2, "cpu",
                          init_method=f"file://{tmp_path / 'store'}",
                          timeout=JOIN_S)
 
 
 def test_dryrun_multichip_runs_on_the_cpu(tmp_path, capsys):
-    line = dryrun.dryrun_multichip(
-        4, device="cpu", init_method=f"file://{tmp_path / 'store'}")
+    with children():
+        line = dryrun.dryrun_multichip(
+            4, device="cpu", init_method=f"file://{tmp_path / 'store'}")
     assert line.startswith("dryrun_multichip(4, cpu): image bit-equal")
     assert line.endswith("OK") and line in capsys.readouterr().out

@@ -9,6 +9,8 @@ carried across by ``ir_from_numpy``; ``tests/test_checkpoint.py``'s three
 cases run on the port.  No JAX render: the JAX side only saves, loads
 and denoises."""
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import dataclasses
 import json
 import threading

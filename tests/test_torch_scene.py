@@ -2,6 +2,8 @@
 build, the HDRI packing and build_ir must give exactly what the JAX
 package gives for the same scene."""
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import dataclasses
 
 import numpy as np
@@ -116,3 +118,78 @@ def test_hdri_pdf_and_sample_equal_jax(shape):
     for r1 in np.concatenate([np.random.default_rng(9).uniform(size=300),
                               got.cdf[[0, 1, 7]], [1.0]]):
         assert got.sample(float(r1)) == ref.sample(float(r1)), r1
+
+
+def _welded_mesh(seed):
+    """A 6 x 6 grid of quads whose corners weld, with -0.0 beside 0.0 in
+    the welded keys, mirrored UVs on some faces, every face repeated
+    once, and faces of zero area and of zero UV area."""
+    rng = np.random.default_rng(seed)
+    g = 7
+    xs, ys = np.meshgrid(np.arange(g, dtype=np.float64),
+                         np.arange(g, dtype=np.float64), indexing="ij")
+    pos = np.stack([xs, ys, np.zeros_like(xs)], -1)
+    pos[rng.uniform(size=(g, g)) < 0.5, 2] = -0.0
+    uv = np.stack([xs, ys], -1) / (g - 1)
+    tris, tuv = [], []
+    for i in range(g - 1):
+        for j in range(g - 1):
+            c = [(i, j), (i + 1, j), (i + 1, j + 1), (i, j + 1)]
+            for a, b, d in ((0, 1, 2), (0, 2, 3)):
+                tris.append([pos[c[k]] for k in (a, b, d)])
+                tuv.append([uv[c[k]] for k in (a, b, d)])
+    verts, uvs = np.array(tris), np.array(tuv)
+    mirror = rng.uniform(size=len(uvs)) < 0.3
+    uvs[mirror, :, 0] = 1.0 - uvs[mirror, :, 0]
+    verts, uvs = np.concatenate([verts, verts]), np.concatenate([uvs, uvs])
+    verts[3, 2] = verts[3, 1]          # zero area
+    uvs[5, 1] = uvs[5, 0]
+    uvs[5, 2] = uvs[5, 0]              # zero UV area
+    normals = np.zeros_like(verts)
+    normals[..., 2] = 1.0
+    normals[rng.uniform(size=normals.shape[:2]) < 0.5, 0] = -0.0
+    return verts, uvs, normals
+
+
+def _heightfield_corners(grid):
+    verts = demo.heightfield_tris(grid, 0).astype(np.float64)
+    fn = np.cross(verts[:, 2] - verts[:, 0], verts[:, 1] - verts[:, 0])
+    fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-12)
+    normals = np.repeat(fn[:, None, :], 3, axis=1).astype(np.float32)
+    uvs = np.stack([(verts[..., 0] + 2) / 4, (verts[..., 2] + 2) / 4], -1)
+    return verts, uvs.astype(np.float32), normals
+
+
+@pytest.mark.parametrize("mesh", ["heightfield", "welds_mirrors_degenerates"])
+def test_compute_tangents_equals_jax(mesh):
+    """The port's weld groups by a hash sort, the JAX package's by a sort
+    of records: the same tangents and signs bit for bit."""
+    from elevenrender_tpu.scene.tangents import (
+        compute_tangents as jax_compute_tangents)
+    from elevenrender_tpu_torch.scene.tangents import compute_tangents
+    args = (_heightfield_corners(40) if mesh == "heightfield"
+            else _welded_mesh(3))
+    got, want = compute_tangents(*args), jax_compute_tangents(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["signed_zeros", "nan_rows", "collision"])
+def test_weld_groups_rows_as_the_record_sort_does(case, monkeypatch):
+    """``_weld`` puts two rows in one group exactly when the sort of
+    records does: -0.0 beside 0.0, NaN rows (never equal), and a hash
+    that makes every row collide (the exact sort decides)."""
+    from elevenrender_tpu_torch.scene import tangents
+    rng = np.random.default_rng(5)
+    key = rng.integers(0, 3, (400, 5)).astype(np.float64)
+    key[rng.uniform(size=key.shape) < 0.3] *= -1.0  # -0.0 where 0
+    if case == "nan_rows":
+        key[[7, 8, 9], 2] = np.nan
+        key[8] = key[7]
+    if case == "collision":
+        monkeypatch.setattr(tangents, "_HASH_MUL", np.uint64(0))
+    keyv = np.ascontiguousarray(key).view([("", key.dtype)] * key.shape[1])
+    want = np.unique(keyv, return_inverse=True)[1].reshape(-1)
+    got = tangents._weld(key)
+    pairs = np.unique(np.stack([got, want], 1), axis=0)
+    assert len(pairs) == len(np.unique(got)) == len(np.unique(want))

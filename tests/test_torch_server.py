@@ -19,6 +19,8 @@ command session, TCP server and client, against the JAX package's.
 Every server binds a free port of its own (never 5873 or 5557: the JAX
 server tests hold 5873, and test files run at the same time)."""
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import dataclasses
 import json
 import socket

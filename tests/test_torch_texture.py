@@ -8,6 +8,8 @@ NaN -> 0, saturating at the int32 range, while torch's bare cast gives
 INT_MIN for NaN and +-inf; the port reproduces XLA's.
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -36,6 +36,8 @@ pure functions, and the plain walk at the ray counts whose hand-out
 the card checks (a short last run of 32, a single ray).
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import dataclasses
 
 import numpy as np

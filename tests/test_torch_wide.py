@@ -24,6 +24,8 @@ Then ``convert.ir_from_numpy(wide=True)``, the wrapper's refusals, and the
 sweep entry point end to end on the CPU at grid 12, 32 x 32 rays.
 """
 
+import torch_threads  # noqa: F401  (first: torch's threads a worker)
+
 import dataclasses
 
 import numpy as np
