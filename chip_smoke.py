@@ -91,10 +91,11 @@ result line is printed):
     and captures its own graphs of the same programs; the albedo halved
     replays the same captures and equals eager for those values;
     remat_bounces at 64x64 agrees.
-    Reported: warm-up and capture s of each pass, the reserved memory
-    each capture keeps, s per fwd+bwd and rays/s in turns (eager, graph,
-    graph, eager), each pass's ms/sample, busy share and device time over
-    the unprofiled wall (profile_step.profile_grad, in a child process),
+    Reported: each pass's first call s (warm-up, capture, replays), the
+    reserved memory each capture keeps, s per fwd+bwd and rays/s in turns
+    (eager, graph, graph, eager), each pass's ms/sample, busy share and
+    device time over the unprofiled wall (profile_step.profile_grad, in a
+    child process),
     peak memory (64 samples, bench.py's headline shape, is phase 21's
     bench); then 2 samples by replay under each other (order, leaf_aabb)
     variant: the same loss; then config 5 (999,698 tris, textures, a point
@@ -179,7 +180,7 @@ result line is printed):
     eager sample, and the gradient path's eager recording sample and
     vector-Jacobian product (replaying the record and tracing again),
     under torch.cuda.set_sync_debug_mode("error"): no host sync; (b) a
-    fresh capture (its warm-up sample, capture time and the
+    fresh capture (its warm-up sample and capture, timed together, the
     reserved memory it leaves, beside an eager sample's transient peak),
     then n replays against n eager samples from the same state: passes,
     sample counts and RNG state equal bit for bit; (c) 5 closest-hit and
@@ -216,8 +217,8 @@ result line is printed):
     gradient finite at every step; captures in the first step only
     (CapturedCall.captures), every later step a replay; 5 + 5 launches a
     pass-1 replay and 0 a pass-2 replay by the accounting, each pass
-    counted around it.  Reported: s per Adam step, rays/s, peak memory,
-    capture s;
+    counted around it.  Reported: s per Adam step, rays/s, peak
+    memory;
 23. the applications, each in a subprocess as a user runs it (python3 -m
     elevenrender_tpu_torch.<name>, on the card): (a) render_config5 at
     999,698 tris and 1024x1024 with SPP=48 CKPT=16, once straight through
@@ -1020,7 +1021,7 @@ def gradient_at_full_width(cfg, ir_, launch_log, prof):
     buffers = grad_mod.static_params(ir_, params, dev)
     merged = grad_mod._merge(ir_, buffers)
     tr.reset_counts()
-    (loss, seed, caches, state), _ = profile_step.wall(
+    (loss, seed, caches, state), first1 = profile_step.wall(
         grad_mod._accum_fwd_chunked, cfg, merged, target, n, n, True,
         dev)
     counted1 = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
@@ -1030,7 +1031,7 @@ def gradient_at_full_width(cfg, ir_, launch_log, prof):
     same_pass1("gradient path", (loss, caches, state),
                (e_loss, e_caches, e_state))
     tr.reset_counts()
-    (grads, rng), _ = profile_step.wall(
+    (grads, rng), first2 = profile_step.wall(
         grad_mod._accum_bwd_chunked, cfg, ir_, buffers, seed, caches, n, n,
         dev)
     counted2 = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
@@ -1038,13 +1039,8 @@ def gradient_at_full_width(cfg, ir_, launch_log, prof):
     r2 = torch.cuda.memory_reserved()
     record_mib = sum(v.numel() * v.element_size() for c in caches
                      for v in c.values()) / 2**20
-    p1 = dispatch.sample_graph(cfg, merged, res * res, 0, dev,
-                               record=True)
-    (vjp,) = [e for e in dispatch._graphs[ir_["tris"]["verts"]].values()
-              if isinstance(e, grad_mod._VjpCall)]
     out.update(
-        warmup_s={"pass1": p1.warmup_s, "pass2": vjp.warmup_s},
-        capture_s={"pass1": p1.capture_s, "pass2": vjp.capture_s},
+        first_call_s={"pass1": first1, "pass2": first2},
         reserved_after_pass1_mib=(r1 - r0) / 2**20,
         record_mib=record_mib,
         reserved_by_pass2_mib=(r2 - r1) / 2**20,
@@ -1173,8 +1169,8 @@ def gradient_at_full_width(cfg, ir_, launch_log, prof):
           f"% / {e['pass1']['device_over_unprofiled'] * 100:.1f}%, pass "
           f"2 {g['pass2']['device_over_unprofiled'] * 100:.1f}% / "
           f"{e['pass2']['device_over_unprofiled'] * 100:.1f}%")
-    print(f"[gradient] warm-up s {out['warmup_s']}, capture s "
-          f"{out['capture_s']}; reserved after pass 1's capture +"
+    print(f"[gradient] first call s (warm-up, capture, replays) "
+          f"{out['first_call_s']}; reserved after pass 1's capture +"
           f"{out['reserved_after_pass1_mib']:.0f} MiB (its records "
           f"{record_mib:.0f} MiB), by pass 2's +"
           f"{out['reserved_by_pass2_mib']:.0f} MiB; peak allocated "
@@ -1396,9 +1392,6 @@ def inverse_path(cfg, ir_, outdir):
     peaks.append(torch.cuda.max_memory_allocated() / 2**20)
     full_launches = counts()  # the target's eager samples, the steps
     variants = dict(tr.variant_launches)
-    entries = dispatch._graphs.get(ir_["tris"]["verts"], {}).values()
-    capture_s = [e.capture_s for e in entries if isinstance(
-        e, (dispatch.SampleGraph, dispatch.CountedCall))]
     later = steps[1:]
     s_step = float(np.median([st["s"] for st in later]))
     rays = 2 * cfg.max_bounces * res * res * n
@@ -1408,7 +1401,7 @@ def inverse_path(cfg, ir_, outdir):
         "s_per_step": [st["s"] for st in steps],
         "rays_per_s": rays / s_step, "peak_mib_first_step": peaks[0],
         "peak_mib_later_steps": peaks[1],
-        "capture_s": capture_s, "captures_first_step": steps[0]["captures"],
+        "captures_first_step": steps[0]["captures"],
         "captures_later": sum(st["captures"] for st in later),
         "losses": full["losses"], "recovered": full["albedos"][-1].tolist(),
         "start": full["start"].tolist(), "wall_s": wall_s}
@@ -1420,7 +1413,7 @@ def inverse_path(cfg, ir_, outdir):
           f"{full['losses'][0]:.8f} -> {full['losses'][-1]:.8f}; "
           f"{s_step:.4f} s per Adam step (median of steps 2-"
           f"{INVERSE_STEPS}; the first, with its warm-ups and captures, "
-          f"{steps[0]['s']:.3f} s; capture s {capture_s}), "
+          f"{steps[0]['s']:.3f} s), "
           f"{rays / s_step:.4g} rays/s, peak allocated {peaks[1]:.0f} MiB "
           f"over the later steps ({peaks[0]:.0f} MiB up to the first: "
           f"the target's eager samples and the warm-ups); "
@@ -2756,12 +2749,13 @@ def main():
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             r0 = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
             graph.run(ir_, st, 1)
             torch.cuda.synchronize()
+            out["first_run_s"] = time.perf_counter() - t0
             torch.cuda.empty_cache()
             out["capture_reserved_mib"] = (torch.cuda.memory_reserved()
                                            - r0) / 2**20
-            out["warmup_s"], out["capture_s"] = graph.warmup_s, graph.capture_s
             # (b) n replays against n eager samples from the same state,
             # with the replay accounting.
             start = {k: v.clone() for k, v in st.items()}
@@ -2792,8 +2786,8 @@ def main():
                   f"launches per sample (closest-hit, any-hit): accounted "
                   f"{accounted[0] / n:g}, {accounted[1] / n:g}, profiled in "
                   f"one replay {profiled} of {out['replay_kernels']} device "
-                  f"events; warm-up sample {graph.warmup_s * 1e3:.1f} ms, "
-                  f"capture {graph.capture_s * 1e3:.1f} ms, reserved memory "
+                  f"events; warm-up sample and capture "
+                  f"{out['first_run_s'] * 1e3:.1f} ms, reserved memory "
                   f"the capture left {out['capture_reserved_mib']:.0f} MiB "
                   f"(an eager sample's transient "
                   f"{out['eager_transient_mib']:.0f} MiB)")

@@ -12,9 +12,10 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
 
 import torch
+
+from . import spans
 
 
 def resolve_device(device) -> torch.device:
@@ -81,6 +82,14 @@ class CapturedCall:
     ``CapturedCall.captures`` counts the captures made in the process
     (an inverse-rendering loop checks with it that its steps replay).
 
+    ``kind`` names the call in its spans (``core/spans.py``):
+    ``capture.warmup.<kind>`` and ``capture.record.<kind>`` time the
+    warm-up and the capture on the host, and each capture counts one
+    ``capture``.  The host counters that the capture's wrappers count
+    (the traversal's launches, the integrator's lanes) are taken out of
+    the counters (``spans.deferred``) into ``counts``, and every replay
+    (span ``replay``) adds them back.
+
     Callers take a ``turn()``: one at a time, and on a card each turn's
     work on the stream it enqueues to waits for the last turn's, so the
     buffers are never written by two streams at once.  When the object is
@@ -89,12 +98,13 @@ class CapturedCall:
 
     captures = 0
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, kind: str):
         self.device = device
         self.cuda = device.type == "cuda"
+        self.kind = kind
         self.static: dict | None = None
-        self.graph = self.out = None
-        self.warmup_s = self.capture_s = None
+        self.graph = self.out = self.counts = None
+        self._span_stack = None
         self._lock = threading.Lock()
         self._done = None
 
@@ -129,7 +139,7 @@ class CapturedCall:
                 self.static[k].copy_(v)
 
     def warm_up(self, fn):
-        """``fn(static)`` eagerly, timed to its end; returns its output.
+        """``fn(static)`` eagerly, to its end; returns its output.
         It runs as PyTorch's recipe for capturing a backward pass runs
         its warm-up (``torch.cuda.make_graphed_callables``): on a side
         stream, between two device synchronisations.  The side stream is
@@ -138,14 +148,12 @@ class CapturedCall:
         intermediates go back to the allocator's cache of that stream,
         which only warm-ups, each after a device synchronisation, draw
         from: a capture allocates from its graph's own pool."""
-        t0 = time.perf_counter()
-        with _capture_lock:
+        with spans.span(f"capture.warmup.{self.kind}"), _capture_lock:
             torch.cuda.synchronize(self.device)
             with torch.cuda.device(self.device), torch.cuda.stream(
                     _capture_stream(self.device)):
                 out = fn(self.static)
             torch.cuda.synchronize(self.device)
-        self.warmup_s = time.perf_counter() - t0
         return out
 
     def capture(self, fn) -> None:
@@ -159,16 +167,21 @@ class CapturedCall:
         stream: its kernels are recorded and its memory drawn from the
         graph's pool."""
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with _capture_lock:
-            with torch.cuda.device(self.device), torch.cuda.graph(
-                    graph, stream=_capture_stream(self.device),
-                    capture_error_mode="thread_local"):
-                out = fn(self.static)
+        with spans.span(f"capture.record.{self.kind}"), _capture_lock:
+            stream = _capture_stream(self.device)
+            with spans.deferred() as counts, spans.capturing(
+                    self.device, stream) as stack:
+                with torch.cuda.device(self.device), torch.cuda.graph(
+                        graph, stream=stream,
+                        capture_error_mode="thread_local"):
+                    out = fn(self.static)
             CapturedCall.captures += 1
-        self.capture_s = time.perf_counter() - t0
-        self.graph, self.out = graph, out
+            spans.count("capture")
+        self.graph, self.out, self.counts = graph, out, counts
+        self._span_stack = stack
 
     def replay(self):
-        self.graph.replay()
+        with spans.span("replay"):
+            self.graph.replay()
+        spans.add(self.counts)
         return self.out

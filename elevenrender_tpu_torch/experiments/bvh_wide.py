@@ -36,6 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..core import spans
 from ..ops import traverse as traverse_ops
 from ..ops.bvh import preorder_indices
 from ..ops.traverse import (_check, _fit, _groups_of_8, _leaf_scan,
@@ -241,7 +242,7 @@ def _launch(nodes8, leaf8, tris, ray_o, ray_d, depth, count_steps=False):
         raise RuntimeError("bvh_wide launch failed: "
                            + lib.bvh_wide_error_string(rc).decode())
     if n > 0:
-        traverse_ops.wide_launches += 1
+        spans.count("wide_launches")
         traverse_ops.count_variant(("wide", 0, "full", bool(count_steps)))
     if count_steps:
         return idx, t, counts

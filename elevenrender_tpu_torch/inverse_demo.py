@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from .core import spans
 from .core.device import resolve_device
 from .render import grad as grad_mod
 from .render.integrator import init_state, sample_radiance
@@ -90,7 +91,14 @@ class Adam:
         self.count = 0
 
     def step(self, params, grads):
-        """The parameters after one step on ``grads``."""
+        """The parameters after one step on ``grads`` (span ``adam``)."""
+        leaf = grads
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        with spans.span("adam", leaf.device):
+            return self._step(params, grads)
+
+    def _step(self, params, grads):
         self.count += 1
         b1, b2 = self.B1, self.B2
         self.mu = _tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads,

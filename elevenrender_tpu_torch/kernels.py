@@ -4,15 +4,21 @@ Each kernel source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded
 with ``ctypes``.  The host runtime (``csrc/elevenrt.cpp``: the SAH build
 and the OBJ tokenizer) is built the same way by the host compiler
-(``c++``); it is kept in a table of its own, ``HOST_LIBRARIES``, since it
-has no kernel and no ptxas report.  Nothing is built at import time: a
-library is built at its first use (or by ``build_all``, which starts one
-compiler per library at once) into ``build/kernels/`` beside the package,
-keyed by a hash of its sources, the headers they share and its flags, so
-a changed source or header rebuilds and an unchanged one loads at once.
-A failed build raises with the compiler's output.  A library's build log
-(for a CUDA library, ptxas's resource report) is kept beside it, so a
-library found built reports the same ``build_info``.
+(``c++``); it is kept in a table of its own, ``HOST_LIBRARIES``, since
+it has no kernel and no ptxas report.  The stamp kernels of the span
+registry (``csrc/spans.cu``, ``core/spans.py``) are an instrument, not a
+render kernel: they are in ``INSTRUMENT_LIBRARIES``, built by ``nvcc``
+like the rest, and only when tracing is turned on.  Nothing is built at
+import time: a library is built at its first use (or by ``build_all``,
+which starts one compiler per library at once) into ``build/kernels/``
+beside the package, keyed by a hash of its sources, the headers they
+share and its flags, so a changed source or header rebuilds and an
+unchanged one loads at once.  A failed build raises with the compiler's
+output.  Building is the span ``kernels.build`` and counts one
+``kernel_build`` a library compiled; loading a library is the span
+``kernels.load``.  A library's build log (for a CUDA library, ptxas's
+resource report) is kept beside it, so a library found built reports the
+same ``build_info``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from .core import spans
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -54,6 +62,10 @@ HOST_LIBRARIES = {
     "elevenrt": (("elevenrt.cpp",), (), ()),
 }
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
+# CUDA libraries of instruments, built with BASE_FLAGS: the span stamps.
+INSTRUMENT_LIBRARIES = {
+    "spans": (("spans.cu",), (), ()),
+}
 
 _loaded: dict[Path, ctypes.CDLL] = {}
 # name -> {"seconds": build time or 0.0 when cached, "log": compiler output}
@@ -84,7 +96,10 @@ def _cxx() -> str:
 def _target(name: str) -> tuple[Path, list[str]]:
     """(the library's path, its compiler's arguments without ``-o``)."""
     host = name in HOST_LIBRARIES
-    sources, flags, headers = (HOST_LIBRARIES if host else LIBRARIES)[name]
+    sources, flags, headers = (HOST_LIBRARIES if host else
+                               INSTRUMENT_LIBRARIES
+                               if name in INSTRUMENT_LIBRARIES
+                               else LIBRARIES)[name]
     base = HOST_FLAGS if host else BASE_FLAGS
     paths = [CSRC / s for s in sources]
     h = hashlib.sha256()
@@ -100,7 +115,11 @@ def build_all(names=None) -> None:
     """Build every library of ``names`` (default: every CUDA library) that
     is not built yet, one compiler process per library, all started
     together."""
-    names = list(LIBRARIES) if names is None else list(names)
+    with spans.span("kernels.build"):
+        _build(list(LIBRARIES) if names is None else list(names))
+
+
+def _build(names: list) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -116,6 +135,7 @@ def build_all(names=None) -> None:
         procs[name] = (subprocess.Popen(
             [compiler, *cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out, time.time())
+        spans.count("kernel_build")
     errors = []
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
@@ -138,6 +158,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         if not out.exists():
             build_all([name])
-        lib = ctypes.CDLL(str(out))
+        with spans.span("kernels.load"):
+            lib = ctypes.CDLL(str(out))
         _loaded[out] = lib
     return lib

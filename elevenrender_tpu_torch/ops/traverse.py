@@ -56,13 +56,17 @@ Kernel tables (``pack_tables``, built by ``build_ir``/``ir_from_numpy``):
 
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import ctypes
+import sys
+import types
 
 import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..core import spans
 from .bvh import preorder_indices
 from .intersect import moller_trumbore
 
@@ -90,7 +94,8 @@ LEAF_MODES = ("full", "noscan", "skip")
 _GROUP_TABLE = {1: "groups8", 2: "groups4"}
 _GROUP_SHIFT = {1: 3, 2: 2}
 
-# Kernel launches since the last reset.  ``launches`` and
+# Kernel launches since the last reset: host counters of the span
+# registry (``core/spans.py``) under these names.  ``launches`` and
 # ``any_hit_launches`` count the binary kernel (csrc/bvh_traverse.cu),
 # ``v1_launches`` its first version (csrc/bvh_traverse_v1.cu),
 # ``frontier_launches`` the frontier-K kernel (csrc/bvh_frontier.cu),
@@ -99,14 +104,32 @@ _GROUP_SHIFT = {1: 3, 2: 2}
 # (order, leaf_aabb, leaf_mode, count_steps); the first version's order
 # reads "binary-v1", the frontier walk's "frontier=K", the wide walk's
 # "wide".  A wrapper counts where it launches; a CUDA graph
-# (render/dispatch.py) takes its capture's counts out (``deferred_counts``)
-# and adds them back on each replay (``add_counts``).
-launches = 0
-any_hit_launches = 0
-v1_launches = 0
-frontier_launches = 0
-wide_launches = 0
-variant_launches: dict = {}
+# (``core.device.CapturedCall``) takes its capture's counts out and adds
+# them back on each replay.  The module's attributes of these names, and
+# the functions below, are views of the registry's counters.
+_COUNTERS = ("launches", "any_hit_launches", "v1_launches",
+             "frontier_launches", "wide_launches")
+_VARIANTS = "variant_launches"
+
+
+class _Variants(collections.abc.Mapping):
+    """``variant_launches``: the registry's (``_VARIANTS``, key)
+    counters as a read-only dict of key -> launches."""
+
+    def __getitem__(self, key):
+        return spans.group(_VARIANTS)[key]
+
+    def __iter__(self):
+        return iter(spans.group(_VARIANTS))
+
+    def __len__(self):
+        return len(spans.group(_VARIANTS))
+
+    def __repr__(self):
+        return repr(spans.group(_VARIANTS))
+
+
+variant_launches = _Variants()
 
 # The frontier walk's stack over the rays of its last count_steps launch
 # or plain run: the deepest any ray's stack grew (entries) and the pushes
@@ -115,28 +138,16 @@ frontier_stack = {"deepest": 0, "refused": 0}
 
 
 def reset_counts() -> None:
-    global launches, any_hit_launches, v1_launches, frontier_launches
-    global wide_launches
-    launches = 0
-    any_hit_launches = 0
-    v1_launches = 0
-    frontier_launches = 0
-    wide_launches = 0
-    variant_launches.clear()
+    spans.reset([*_COUNTERS, _VARIANTS])
 
 
 def count_variant(key) -> None:
-    variant_launches[key] = variant_launches.get(key, 0) + 1
-
-
-_COUNTERS = ("launches", "any_hit_launches", "v1_launches",
-             "frontier_launches", "wide_launches")
+    spans.count((_VARIANTS, key))
 
 
 def launch_counts() -> dict:
     """Every launch counter, ``variant_launches`` copied."""
-    g = globals()
-    return {**{k: g[k] for k in _COUNTERS},
+    return {**{k: spans.counter(k) for k in _COUNTERS},
             "variant_launches": dict(variant_launches)}
 
 
@@ -144,35 +155,36 @@ def launch_counts() -> dict:
 def deferred_counts():
     """Take the launches counted inside the block back out of the
     counters, and yield them (filled in on exit) in ``launch_counts``'
-    shape.  A CUDA graph's capture runs the wrappers, which count, but
-    launches nothing: its kernels run when the graph is replayed, and
-    each replay adds the record with ``add_counts``."""
-    before = launch_counts()
+    shape: ``spans.deferred`` seen through the launch counters."""
     taken: dict = {}
     try:
-        yield taken
+        with spans.deferred() as counts:
+            yield taken
     finally:
-        after = launch_counts()
-        taken.update({k: after[k] - before[k] for k in _COUNTERS})
+        taken.update({k: counts.get(k, 0) for k in _COUNTERS})
         taken["variant_launches"] = {
-            k: v - before["variant_launches"].get(k, 0)
-            for k, v in after["variant_launches"].items()
-            if v != before["variant_launches"].get(k, 0)}
-        g = globals()
-        for k in _COUNTERS:
-            g[k] = before[k]
-        variant_launches.clear()
-        variant_launches.update(before["variant_launches"])
+            k[1]: v for k, v in counts.items()
+            if isinstance(k, tuple) and k[0] == _VARIANTS}
 
 
 def add_counts(counts: dict) -> None:
     """Add a ``deferred_counts`` record to the counters: the launches of
     one replay of the graph it was captured with."""
-    g = globals()
-    for k in _COUNTERS:
-        g[k] += counts[k]
-    for k, v in counts["variant_launches"].items():
-        variant_launches[k] = variant_launches.get(k, 0) + v
+    spans.add({**{k: counts[k] for k in _COUNTERS},
+               **{(_VARIANTS, k): v
+                  for k, v in counts["variant_launches"].items()}})
+
+
+class _Module(types.ModuleType):
+    """This module, with each of ``_COUNTERS`` an attribute that reads
+    and writes the registry's counter."""
+
+
+for _name in _COUNTERS:
+    setattr(_Module, _name, property(
+        lambda self, n=_name: spans.counter(n),
+        lambda self, v, n=_name: spans.count(n, v - spans.counter(n))))
+sys.modules[__name__].__class__ = _Module
 
 
 def frontier_stack_rows(frontier: int, depth: int) -> int:
@@ -497,7 +509,6 @@ def _check_depth(depth):
 
 def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
             leaf_aabb=0, leaf_mode="full", count_steps=False):
-    global launches, any_hit_launches
     check_variant(order, leaf_aabb, leaf_mode)
     dev = ray_o.device
     _check_depth(depth)
@@ -531,8 +542,8 @@ def _launch(tables, ray_o, ray_d, depth, exclude, t_max, order="near",
         raise RuntimeError("bvh_traverse launch failed: "
                            + lib.bvh_traverse_error_string(rc).decode())
     if n > 0:
-        launches += 1
-        any_hit_launches += int(any_hit)
+        spans.count("launches")
+        spans.count("any_hit_launches", int(any_hit))
         count_variant((order, leaf_aabb, leaf_mode, bool(count_steps)))
     if count_steps:
         return idx, t, counts
@@ -576,7 +587,6 @@ def _v1_library():
 
 def _launch_v1(tables, ray_o, ray_d, depth, exclude, t_max,
                count_steps=False):
-    global v1_launches
     dev = ray_o.device
     _check_depth(depth)
     n, _, _ = _check_launch(tables, ray_o, ray_d, depth, exclude, t_max)
@@ -594,7 +604,7 @@ def _launch_v1(tables, ray_o, ray_d, depth, exclude, t_max,
         raise RuntimeError("bvh_traverse_v1 launch failed: "
                            + lib.bvh_traverse_v1_error_string(rc).decode())
     if n > 0:
-        v1_launches += 1
+        spans.count("v1_launches")
         count_variant(("binary-v1", 0, "full", bool(count_steps)))
     if count_steps:
         return idx, t, counts
@@ -652,7 +662,6 @@ def frontier_blocks_per_sm(device, frontier: int, depth: int,
 
 def _launch_frontier(tables, ray_o, ray_d, depth, frontier, exclude, t_max,
                      count_steps=False):
-    global frontier_launches
     check_frontier(frontier, depth)
     dev = ray_o.device
     n, _, _ = _check_launch(tables, ray_o, ray_d, depth, exclude, t_max)
@@ -677,7 +686,7 @@ def _launch_frontier(tables, ray_o, ray_d, depth, frontier, exclude, t_max,
         raise RuntimeError("bvh_frontier launch failed: "
                            + lib.bvh_frontier_error_string(rc).decode())
     if n > 0:
-        frontier_launches += 1
+        spans.count("frontier_launches")
         count_variant((f"frontier={frontier}", 0, "full", bool(count_steps)))
     if count_steps:
         if n > 0:

@@ -222,7 +222,7 @@ def denoise(width: int, height: int, raw, normal=None, albedo=None):
     with _graphs_lock:
         shape, call = _graphs.get(key, (None, None))
         if shape != (height, width):
-            call = CapturedCall(raw.device)
+            call = CapturedCall(raw.device, "denoise")
             _graphs[key] = ((height, width), call)
 
     def run(st):

@@ -19,9 +19,9 @@ with the launch accounting of a replay):
   advances them by one sample in place;
 - the graph and, inside it, its private memory pool (every intermediate
   of the sample, with the IR's and the buffers' addresses baked in);
-- ``counts``, the traversal launches its capture counted
-  (``ops.traverse.deferred_counts``), which each replay adds to the
-  counters.
+- ``counts``, the host counts its capture counted (the traversal
+  launches, the integrator's lanes: ``core.spans.deferred``), which each
+  replay adds to the counters.
 
 Its first run on a card is the warm-up: one eager sample (on the capture
 stream, between two device synchronisations), which builds and loads
@@ -71,8 +71,8 @@ import threading
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..core import spans
 from ..core.device import CapturedCall, resolve_device
-from ..ops import traverse as traverse_ops
 from . import shaders as shader_registry
 from .integrator import render_sample
 
@@ -87,14 +87,11 @@ def graph_device(device) -> torch.device:
 
 class CountedCall(CapturedCall):
     """A ``CapturedCall`` run one call at a time by ``run(fn)``, whose
-    replays keep the traversal launch counters: the launches its capture
-    counted (``ops.traverse.deferred_counts``) are ``counts``, and each
-    replay adds them (``add_counts``).  ``held``: tensors to keep alive
-    while the graph may read them."""
+    replays keep the host counters as ``CapturedCall`` does.  ``held``:
+    tensors to keep alive while the graph may read them."""
 
-    def __init__(self, device: torch.device, held=()):
-        super().__init__(device)
-        self.counts: dict | None = None
+    def __init__(self, device: torch.device, held, kind: str):
+        super().__init__(device, kind)
         self._held = list(held)
 
     def run(self, fn):
@@ -106,12 +103,9 @@ class CountedCall(CapturedCall):
             return fn(self.static)
         if self.graph is None:
             out = self.warm_up(fn)
-            with traverse_ops.deferred_counts() as self.counts:
-                self.capture(fn)
+            self.capture(fn)
             return out
-        out = self.replay()
-        traverse_ops.add_counts(self.counts)
-        return out
+        return self.replay()
 
 
 class SampleGraph:
@@ -129,7 +123,8 @@ class SampleGraph:
         self.pixel_offset = pixel_offset
         self.device = graph_device(device)
         self.record = record
-        self._call = CountedCall(self.device, held)
+        self._call = CountedCall(self.device, held,
+                                 "record" if record else "sample")
 
     @property
     def state(self) -> dict | None:
@@ -139,19 +134,12 @@ class SampleGraph:
     def counts(self) -> dict | None:
         return self._call.counts
 
-    @property
-    def warmup_s(self):
-        return self._call.warmup_s
-
-    @property
-    def capture_s(self):
-        return self._call.capture_s
-
     def run(self, ir, state: dict, n: int = 1, safe: bool = False):
         """n samples from ``state``.  Returns the static buffers, or with
         ``safe`` a copy of them; with ``record``, (that, the n samples'
         trace records stacked [n, ...]).  Serialised as
-        ``CapturedCall.turn`` says."""
+        ``CapturedCall.turn`` says.  Host span ``dispatch``: the inputs
+        copied in, the replays (span ``replay``) and the copies out."""
         if self.record and n < 1:
             raise ValueError(f"a recording run needs n >= 1, got {n}")
         if n < 1:
@@ -164,11 +152,12 @@ class SampleGraph:
             trace = None
             if self.record:
                 out, trace = out
-            for k, v in out.items():
-                st[k].copy_(v)
+            with spans.span("accumulate", self.device):
+                for k, v in out.items():
+                    st[k].copy_(v)
             return trace
 
-        with call.turn(), torch.no_grad():
+        with spans.span("dispatch"), call.turn(), torch.no_grad():
             call.load(state)
             stack = None
             for i in range(n):
@@ -195,14 +184,15 @@ def ir_leaves(ir: dict) -> list:
 
 
 def cached(ir: dict, key, make):
-    """The cache entry ``key`` of ``ir`` (its tensors' identities and the
-    shader registry version join the key), made by ``make(held)`` on
-    first use: ``held`` is the IR's tensors but the geometry tensor, which
-    the entry keeps alive while the IR is."""
+    """The cache entry ``key`` of ``ir`` (its tensors' identities, the
+    shader registry version and whether tracing is on, ``spans.enabled``,
+    join the key), made by ``make(held)`` on first use: ``held`` is the
+    IR's tensors but the geometry tensor, which the entry keeps alive
+    while the IR is."""
     anchor = ir["tris"]["verts"]
     leaves = ir_leaves(ir)
     key = (key, tuple(id(t) for t in leaves),
-           shader_registry.registry_version())
+           shader_registry.registry_version(), spans.enabled())
     with _graphs_lock:
         entries = _graphs.get(anchor)
         if entries is None:

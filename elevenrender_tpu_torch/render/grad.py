@@ -43,12 +43,18 @@ pixel count, the device and the shader registry version) and freed with
 it.  On the CPU the same code runs each unit eagerly.  ``_accum_fwd``
 and ``_accum_bwd`` are the eager loops of the two passes: the reference
 that the graphs are held to on the card.
+
+Spans (``core/spans.py``) of ``render_loss_and_grad_accum``:
+``grad.pass1`` (the chunks of pass 1), ``grad.loss`` (the loss and the
+seed between the passes) and ``grad.pass2``; the integrator's spans of
+the graphs' samples nest in the first and the last.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core import spans
 from . import dispatch
 from .integrator import (BEAUTY, init_state,
                          recommended_samples_per_dispatch, render_sample,
@@ -183,7 +189,7 @@ def render_loss_and_grad(config, ir, params, target, n_samples: int,
         _merge(ir, buffers),
         ("loss_and_grad", config, n_samples, target.shape[0], pixel_offset,
          n_total, state is not None, dev),
-        lambda held: dispatch.CountedCall(dev, held))
+        lambda held: dispatch.CountedCall(dev, held, "loss_and_grad"))
     inputs = {"target": target}
     if state is not None:
         inputs.update({f"state.{k}": v for k, v in state.items()})
@@ -301,7 +307,7 @@ class _VjpCall(dispatch.CountedCall):
     every run adds its sample's gradients into."""
 
     def __init__(self, device, held, flat):
-        super().__init__(device, held)
+        super().__init__(device, held, "vjp")
         self.grads = [torch.zeros_like(p) for p in flat]
 
 
@@ -359,16 +365,17 @@ def _accum_fwd_chunked(config, merged, target, n_samples: int, chunk: int,
     """Pass 1 by chunk programs.  Returns (loss, seed, the records, one
     stack [n, ...] per chunk, or [], the final state: the graph's
     buffers)."""
-    state = init_state(config, dev)
     caches = []
-    for n in _chunks(n_samples, chunk):
-        if cache_traces:
-            state, cache = _accum_fwd_chunk_record(config, merged, state, n,
-                                                   dev)
-            caches.append(cache)
-        else:
-            state = _accum_fwd_chunk(config, merged, state, n, dev)
-    with torch.no_grad():
+    with spans.span("grad.pass1", dev):
+        state = init_state(config, dev)
+        for n in _chunks(n_samples, chunk):
+            if cache_traces:
+                state, cache = _accum_fwd_chunk_record(config, merged, state,
+                                                       n, dev)
+                caches.append(cache)
+            else:
+                state = _accum_fwd_chunk(config, merged, state, n, dev)
+    with torch.no_grad(), spans.span("grad.loss", dev):
         loss, seed = _loss_and_seed(state, target)
     return loss, seed, caches, state
 
@@ -434,8 +441,9 @@ def render_loss_and_grad_accum(config, ir, params, target, n_samples: int,
     loss, seed, caches, _ = _accum_fwd_chunked(
         config, _merge(ir, buffers), target, n_samples, chunk, cache_traces,
         dev)
-    grads, _ = _accum_bwd_chunked(config, ir, buffers, seed, caches,
-                                  n_samples, chunk, dev)
+    with spans.span("grad.pass2", dev):
+        grads, _ = _accum_bwd_chunked(config, ir, buffers, seed, caches,
+                                      n_samples, chunk, dev)
     return loss, _rebuild(params, iter(_leaves(grads)))
 
 

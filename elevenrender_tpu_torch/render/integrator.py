@@ -27,6 +27,23 @@ choices, sampled directions and the RNG stream are constants of the
 backward pass.  ``record=True`` returns each bounce's discrete trace
 results (hit ids, occlusion bits) and ``trace_cache=`` replays them, so
 a replayed sample launches no traversal and sorts no rays.
+
+Spans and counters (``core/spans.py``; they run where the sample's
+Python runs: eagerly, at a warm-up and at a capture, and a replay
+repeats the stamps the capture recorded).  ``sample`` is the whole of
+``render_sample``: ``camera`` (the camera rays), one ``bounce`` a
+bounce and ``accumulate`` (the pass update).  A bounce's children:
+``traverse`` (the closest-hit trace), ``sort`` (the ray sorts and the
+permutations of a trace; inside ``traverse`` and ``shadow`` where they
+happen there), ``hitdata`` (the hit's attributes: ``hitdata.tri`` the
+triangle rows and the hit, ``hitdata.material`` the material rows,
+``hitdata.texture`` the texture taps) and ``shadow`` (the any-hit
+trace and its rays).  Shading is the bounce's self time.  With tracing
+on, each bounce counts ``lanes`` (its lanes, a host int),
+``alive_lanes`` (its live path lanes) and ``shadow_lanes`` (its gated
+shadow rays) on the device, the sums ``config.count_rays`` adds to
+``ray_count``.  With ``remat_bounces`` the backward pass's recomputation
+of a bounce records its spans and counters again.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import rng as rng_mod
+from ..core import spans
 from ..core.device import constant, resolve_device
 from ..core.vecmath import dot, normalize, where3
 from ..ops import hdri as hdri_ops
@@ -188,15 +206,16 @@ def _trace(config, ir, ray_o, ray_d, mask=None, perm=None, exclude=None,
 
     inverse = None
     if config.sort_rays and sort:
-        if perm is not None:
-            order, inverse = perm
-        else:
-            order, inverse = _sort(config, ir, ray_o, ray_d, mask)
-        ray_o = ray_o[order]
-        ray_d = ray_d[order]
-        if occl:
-            exclude = exclude[order]
-            t_max = t_max[order]
+        with spans.span("sort", ray_d.device):
+            if perm is not None:
+                order, inverse = perm
+            else:
+                order, inverse = _sort(config, ir, ray_o, ray_d, mask)
+            ray_o = ray_o[order]
+            ray_d = ray_d[order]
+            if occl:
+                exclude = exclude[order]
+                t_max = t_max[order]
     if occl:
         exclude = exclude.to(torch.int32).contiguous()
         t_max = t_max.contiguous()
@@ -207,8 +226,9 @@ def _trace(config, ir, ray_o, ray_d, mask=None, perm=None, exclude=None,
                                    leaf_aabb=config.leaf_aabb)
     idx = idx.to(torch.int64)
     if inverse is not None:
-        idx = idx[inverse]
-        t = t[inverse]
+        with spans.span("sort", ray_d.device):
+            idx = idx[inverse]
+            t = t[inverse]
     return idx, t
 
 
@@ -313,19 +333,23 @@ def _generate_hitdata(config, ir, hit, ray_d) -> dict:
     material binds (``config.tex_slots_used``) are skipped outright."""
     mats = ir["materials"]
     atlas = ir["atlas"]
-    table = torch.cat([mats["albedo"], mats["emission"]]
-                      + [mats[s][:, None] for s in _SCALAR_FIELDS], dim=1)
     m = hit["mat"]
-    row = _material_rows(config, table, m)
-    scalar = {s: row[..., 6 + i] for i, s in enumerate(_SCALAR_FIELDS)}
-    tex = mats["tex"][m]
+    dev = m.device
+    with spans.span("hitdata.material", dev):
+        table = torch.cat([mats["albedo"], mats["emission"]]
+                          + [mats[s][:, None] for s in _SCALAR_FIELDS],
+                          dim=1)
+        row = _material_rows(config, table, m)
+        scalar = {s: row[..., 6 + i] for i, s in enumerate(_SCALAR_FIELDS)}
+        tex = mats["tex"][m]
     tu, tv = hit["tu"], hit["tv"]
     used = config.tex_slots_used
 
     def fetch(slot):
         tid = tex[..., slot]
-        val = sample_filtered(atlas, torch.clamp(tid, min=0), tu, tv,
-                              uniform_filter=config.tex_uniform_filter)
+        with spans.span("hitdata.texture", dev):
+            val = sample_filtered(atlas, torch.clamp(tid, min=0), tu, tv,
+                                  uniform_filter=config.tex_uniform_filter)
         return tid >= 0, val
 
     def tex_rgb(slot, fallback):
@@ -352,8 +376,9 @@ def _generate_hitdata(config, ir, hit, ray_d) -> dict:
     if used[4]:
         # Normal map: nearest fetch, tangent-space y flipped.
         ntid = tex[..., 4]
-        local_n = sample_nearest(atlas, torch.clamp(ntid, min=0), tu,
-                                 tv) * 2.0 - 1.0
+        with spans.span("hitdata.texture", dev):
+            local_n = sample_nearest(atlas, torch.clamp(ntid, min=0), tu,
+                                     tv) * 2.0 - 1.0
         world_n = normalize(local_n[..., 0:1] * hit["tangent"]
                             - local_n[..., 1:2] * hit["bitangent"]
                             + local_n[..., 2:3] * hit["normal"])
@@ -400,17 +425,19 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
     x_res, y_res = config.x_res, config.y_res
     f32 = dict(dtype=torch.float32, device=dev)
 
-    idx = pixel_offset + torch.arange(npix, device=dev)
-    px = idx % x_res
-    py = idx // x_res
-    rng, r1 = rng_mod.next_float(rng)
-    rng, r2 = rng_mod.next_float(rng)
-    rng, r3 = rng_mod.next_float(rng)
-    rng, r4 = rng_mod.next_float(rng)
-    rng, r5 = rng_mod.next_float(rng)
-    cam = dict(ir["camera"])
-    cam["bokeh"] = config.bokeh
-    ray_o, ray_d = camera_ray(cam, x_res, y_res, px, py, r1, r2, r3, r4, r5)
+    with spans.span("camera", dev):
+        idx = pixel_offset + torch.arange(npix, device=dev)
+        px = idx % x_res
+        py = idx // x_res
+        rng, r1 = rng_mod.next_float(rng)
+        rng, r2 = rng_mod.next_float(rng)
+        rng, r3 = rng_mod.next_float(rng)
+        rng, r4 = rng_mod.next_float(rng)
+        rng, r5 = rng_mod.next_float(rng)
+        cam = dict(ir["camera"])
+        cam["bokeh"] = config.bokeh
+        ray_o, ray_d = camera_ray(cam, x_res, y_res, px, py, r1, r2, r3, r4,
+                                  r5)
 
     zeros3 = torch.zeros((npix, 3), **f32)
     env = ir["env"]
@@ -420,6 +447,7 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
     inf_col = torch.full((npix,), float("inf"), **f32)
     merge_lights = not config.compat and config.n_lights > 0
     n_bounces = max(config.max_bounces, 1)  # bounce 0 always runs
+    tracing = spans.enabled()
 
     def bounce_body(bounce, carry, perm):
         """One bounce.  Returns (carry, the permutation for the next
@@ -427,16 +455,20 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
         (rng, ray_o, ray_d, light, reduction, alive, aov_normal,
          aov_tangent, aov_bitangent, aov_albedo, prev_brdf_pdf, had_bounce,
          rays) = carry
-        if config.count_rays:
-            rays = rays + alive.to(torch.float32).sum()
-        if replay:
-            hit_idx = trace_cache["hit"][bounce].to(torch.int64)
-        else:
-            # The distance is dropped: full_hit recomputes t and the
-            # position, differentiably, from the hit tri.  Bounce 0's
-            # camera rays are pixel-ordered: no sort.
-            hit_idx, _ = _trace(config, ir, ray_o, ray_d, mask=alive,
-                                perm=perm, sort=use_sort and bounce > 0)
+        if config.count_rays or tracing:
+            n_alive = alive.to(torch.float32).sum()
+            spans.count_device("alive_lanes", n_alive)
+            if config.count_rays:
+                rays = rays + n_alive
+        with spans.span("traverse", dev):
+            if replay:
+                hit_idx = trace_cache["hit"][bounce].to(torch.int64)
+            else:
+                # The distance is dropped: full_hit recomputes t and the
+                # position, differentiably, from the hit tri.  Bounce 0's
+                # camera rays are pixel-ordered: no sort.
+                hit_idx, _ = _trace(config, ir, ray_o, ray_d, mask=alive,
+                                    perm=perm, sort=use_sort and bounce > 0)
 
         miss = alive & (hit_idx < 0)
         if config.compat:
@@ -449,9 +481,11 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
             u_miss, v_miss = spherical_mapping(-ray_d)
         alive = alive & ~miss
 
-        tri = gather_tri(ir["tris"], torch.clamp(hit_idx, min=0))
-        hit = full_hit(ray_o, ray_d, tri)
-        hd = _generate_hitdata(config, ir, hit, ray_d)
+        with spans.span("hitdata", dev):
+            with spans.span("hitdata.tri", dev):
+                tri = gather_tri(ir["tris"], torch.clamp(hit_idx, min=0))
+                hit = full_hit(ray_o, ray_d, tri)
+            hd = _generate_hitdata(config, ir, hit, ray_d)
 
         rng, r_op = rng_mod.next_float_masked(rng, alive)
         shade = alive & (r_op <= hd["opacity"])
@@ -504,7 +538,9 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
             # One sort per bounce, keyed on the hit point and the sampled
             # direction: it orders the next bounce's path rays (and the
             # shadow rays, unless they get their own sort).
-            bounce_perm = _sort(config, ir, hd["position"], wibrdf, alive)
+            with spans.span("sort", dev):
+                bounce_perm = _sort(config, ir, hd["position"], wibrdf,
+                                    alive)
 
         if merge_lights:
             # One light per lane, drawn after every other draw of the
@@ -529,43 +565,45 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
             g_hdri = g_common & (dot(wihdri, n) > 0.0)
             if merge_lights:
                 g_l = g_common & (dot(wi_l, n) > 0.0)
-        if replay:
-            occluded = trace_cache["occ"][bounce]
-            if merge_lights:
-                l_occluded = trace_cache["locc"][bounce]
-        elif config.compat:
-            # Reference parity: nearest hit plus the self-hit test; every
-            # shading lane launches.
-            s_idx, _ = _trace(config, ir, shadow_o, wihdri, mask=shade,
-                              perm=bounce_perm)
-            occluded = (s_idx >= 0) & (s_idx != hit_idx)
-        else:
-            if merge_lights:
-                # The environment and light shadow rays as one any-hit
-                # launch of 2N rays: the light half starts 1e-3 along
-                # wi_l and stops 1e-3 short of the light; both halves
-                # exclude the source tri.
-                so = torch.cat([shadow_o, hd["position"] + wi_l * 1e-3])
-                sd = torch.cat([wihdri, wi_l])
-                gate = torch.cat([g_hdri, g_l])
-                excl = torch.cat([hit_idx, hit_idx])
-                t_max = torch.cat([inf_col, ldist - 1e-3])
+        with spans.span("shadow", dev):
+            if replay:
+                occluded = trace_cache["occ"][bounce]
+                if merge_lights:
+                    l_occluded = trace_cache["locc"][bounce]
+            elif config.compat:
+                # Reference parity: nearest hit plus the self-hit test; every
+                # shading lane launches.
+                s_idx, _ = _trace(config, ir, shadow_o, wihdri, mask=shade,
+                                  perm=bounce_perm)
+                occluded = (s_idx >= 0) & (s_idx != hit_idx)
             else:
-                so, sd, gate, excl, t_max = (shadow_o, wihdri, g_hdri,
-                                             hit_idx, inf_col)
-            if use_sort and config.shadow_sort:
-                perm_s = _sort(config, ir, so, sd, gate)
-            elif bounce_perm is not None and merge_lights:
-                order, inverse = bounce_perm
-                perm_s = (torch.cat([order, order + npix]),
-                          torch.cat([inverse, inverse + npix]))
-            else:
-                perm_s = bounce_perm
-            s_idx, _ = _trace(config, ir, so, sd, mask=gate, perm=perm_s,
-                              exclude=excl, t_max=t_max)
-            occluded = s_idx[:npix] >= 0
-            if merge_lights:
-                l_occluded = s_idx[npix:] >= 0
+                if merge_lights:
+                    # The environment and light shadow rays as one any-hit
+                    # launch of 2N rays: the light half starts 1e-3 along
+                    # wi_l and stops 1e-3 short of the light; both halves
+                    # exclude the source tri.
+                    so = torch.cat([shadow_o, hd["position"] + wi_l * 1e-3])
+                    sd = torch.cat([wihdri, wi_l])
+                    gate = torch.cat([g_hdri, g_l])
+                    excl = torch.cat([hit_idx, hit_idx])
+                    t_max = torch.cat([inf_col, ldist - 1e-3])
+                else:
+                    so, sd, gate, excl, t_max = (shadow_o, wihdri, g_hdri,
+                                                 hit_idx, inf_col)
+                if use_sort and config.shadow_sort:
+                    with spans.span("sort", dev):
+                        perm_s = _sort(config, ir, so, sd, gate)
+                elif bounce_perm is not None and merge_lights:
+                    order, inverse = bounce_perm
+                    perm_s = (torch.cat([order, order + npix]),
+                              torch.cat([inverse, inverse + npix]))
+                else:
+                    perm_s = bounce_perm
+                s_idx, _ = _trace(config, ir, so, sd, mask=gate, perm=perm_s,
+                                  exclude=excl, t_max=t_max)
+                occluded = s_idx[:npix] >= 0
+                if merge_lights:
+                    l_occluded = s_idx[npix:] >= 0
 
         # Every use of the lobes below keeps the shading lanes alone; the
         # others take their lobes at wo = l = n under autograd, so that
@@ -632,11 +670,15 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
         ray_d = where3(alive, next_d, ray_d)
         prev_brdf_pdf = torch.where(shade, brdf_pdf, prev_brdf_pdf)
         had_bounce = had_bounce | shade
-        if config.count_rays:
-            launched = shade if config.compat else g_hdri
-            rays = rays + launched.to(torch.float32).sum()
+        if config.count_rays or tracing:
+            launched = [shade if config.compat else g_hdri]
             if merge_lights:
-                rays = rays + g_l.to(torch.float32).sum()
+                launched.append(g_l)
+            for gate in launched:
+                n_shadow = gate.to(torch.float32).sum()
+                spans.count_device("shadow_lanes", n_shadow)
+                if config.count_rays:
+                    rays = rays + n_shadow
         carry = (rng, ray_o, ray_d, light, reduction, alive, aov_normal,
                  aov_tangent, aov_bitangent, aov_albedo, prev_brdf_pdf,
                  had_bounce, rays)
@@ -650,12 +692,15 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
     perm = None
     recorded = []
     for bounce in range(n_bounces):
-        if config.remat_bounces:
-            carry, perm, found = checkpoint(
-                bounce_body, bounce, carry, perm, use_reentrant=False,
-                preserve_rng_state=False)
-        else:
-            carry, perm, found = bounce_body(bounce, carry, perm)
+        if tracing:
+            spans.count("lanes", npix)
+        with spans.span("bounce", dev):
+            if config.remat_bounces:
+                carry, perm, found = checkpoint(
+                    bounce_body, bounce, carry, perm, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                carry, perm, found = bounce_body(bounce, carry, perm)
         recorded.append(found)
 
     (rng, _, _, light, _, _, aov_normal, aov_tangent, aov_bitangent,
@@ -685,33 +730,37 @@ def render_sample(config, ir, state, pixel_offset=0, record=False,
     if state["rng"].device.type != dev.type:
         raise ValueError(f"state is on {state['rng'].device}, "
                          f"render_sample was asked for {dev}")
-    npix = state["samples"].shape[0]
-    out, rng = sample_radiance(config, ir, state["rng"], npix, pixel_offset,
-                               record=record)
-    ok = out["ok"]
-
-    sa = state["samples"].to(torch.float32)
-    scale = torch.where(sa > 0, sa / (sa + 1.0), torch.ones_like(sa))
-    inv = 1.0 / (sa + 1.0)
-    passes = state["passes"]
-    rgb_scale = torch.where(ok[None, :, None], scale[None, :, None],
-                            torch.ones_like(scale)[None, :, None])
-    rgb = passes[:, :, :3] * rgb_scale
-    adds = [None] * PASSES_COUNT
-    for pid, val in ((BEAUTY, out["light"]), (NORMAL, out["normal"]),
-                     (TANGENT, out["tangent"]),
-                     (BITANGENT, out["bitangent"]),
-                     (DENOISE, out["albedo"])):
-        add = val * inv[:, None]
-        adds[pid] = torch.where(ok[:, None], add, torch.zeros_like(add))
-    rgb = rgb + torch.stack(adds)
-    new_state = {
-        "passes": torch.cat([rgb, passes[:, :, 3:]], dim=2),
-        "samples": state["samples"] + ok.to(torch.int64),
-        "rng": rng,
-    }
-    if config.count_rays:
-        new_state["ray_count"] = state["ray_count"] + out["rays"]
+    with spans.span("sample", dev):
+        npix = state["samples"].shape[0]
+        out, rng = sample_radiance(config, ir, state["rng"], npix,
+                                   pixel_offset, record=record)
+        with spans.span("accumulate", dev):
+            ok = out["ok"]
+            sa = state["samples"].to(torch.float32)
+            scale = torch.where(sa > 0, sa / (sa + 1.0),
+                                torch.ones_like(sa))
+            inv = 1.0 / (sa + 1.0)
+            passes = state["passes"]
+            rgb_scale = torch.where(ok[None, :, None], scale[None, :, None],
+                                    torch.ones_like(scale)[None, :, None])
+            rgb = passes[:, :, :3] * rgb_scale
+            adds = [None] * PASSES_COUNT
+            for pid, val in ((BEAUTY, out["light"]),
+                             (NORMAL, out["normal"]),
+                             (TANGENT, out["tangent"]),
+                             (BITANGENT, out["bitangent"]),
+                             (DENOISE, out["albedo"])):
+                add = val * inv[:, None]
+                adds[pid] = torch.where(ok[:, None], add,
+                                        torch.zeros_like(add))
+            rgb = rgb + torch.stack(adds)
+            new_state = {
+                "passes": torch.cat([rgb, passes[:, :, 3:]], dim=2),
+                "samples": state["samples"] + ok.to(torch.int64),
+                "rng": rng,
+            }
+            if config.count_rays:
+                new_state["ray_count"] = state["ray_count"] + out["rays"]
     if record:
         return new_state, out["trace"]
     return new_state

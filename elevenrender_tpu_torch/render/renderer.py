@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..convert import ir_to
-from ..core import child
+from ..core import child, spans
 from ..core.device import resolve_device
 from ..utils.logging import get_logger
 from . import denoise as denoise_mod
@@ -140,7 +140,7 @@ class Renderer:
         return event
 
     def _publish(self, state, event) -> None:
-        with self._lock:
+        with spans.span("publish"), self._lock:
             self._snapshot = (state, event)
 
     # -- stepping ---------------------------------------------------------
@@ -155,15 +155,16 @@ class Renderer:
                                              device=self.device)
 
     def step(self, n: int = 1) -> None:
-        """Run n progressive samples synchronously."""
-        if self._cuda:
-            # After a background render: its stream's state, read here.
-            current = torch.cuda.current_stream(self.device)
-            current.wait_stream(self._stream)
-            for t in self.state.values():
-                t.record_stream(current)
-        self._render(n)
-        self._publish(self.state, self._record())
+        """Run n progressive samples synchronously (span ``step``)."""
+        with spans.span("step"):
+            if self._cuda:
+                # After a background render: its stream's state, read here.
+                current = torch.cuda.current_stream(self.device)
+                current.wait_stream(self._stream)
+                for t in self.state.values():
+                    t.record_stream(current)
+            self._render(n)
+            self._publish(self.state, self._record())
 
     def start(self, sample_target: int | None = None,
               samples_per_dispatch: int | None = None) -> None:
@@ -250,7 +251,12 @@ class Renderer:
         normal pass and the first-hit albedo (which the DENOISE slot
         accumulates); the reference returns its never-written buffer
         there.  ``apply_denoise`` (default ``config.denoise``) sends any
-        other pass through the colour-only denoiser, alpha set to 1."""
+        other pass through the colour-only denoiser, alpha set to 1.
+        Span ``readback``."""
+        with spans.span("readback"):
+            return self._get_pass(name, apply_denoise)
+
+    def _get_pass(self, name: str, apply_denoise: bool | None):
         pid = parse_pass(name)
         w, h = self.config.x_res, self.config.y_res
         if apply_denoise is None:
@@ -271,8 +277,9 @@ class Renderer:
                 np.float32).reshape(-1)
 
     def get_render_info(self) -> dict:
-        """Progress as the snapshot's first pixel's sample count."""
-        with self._snapshot_view() as snap:
+        """Progress as the snapshot's first pixel's sample count (span
+        ``readback``)."""
+        with spans.span("readback"), self._snapshot_view() as snap:
             samples = int(snap["samples"][0])
         if self.config.compat:
             samples -= 1  # compat counts start at 1
@@ -283,27 +290,30 @@ class Renderer:
         """The snapshot's accumulation state (passes, per-pixel sample
         counts, RNG streams) as the JAX package writes it: an ``.npz``
         with ``passes`` float32, ``samples`` and ``rng`` uint32, and
-        ``x_res`` / ``y_res``."""
-        with self._snapshot_view() as snap:
-            host = {k: snap[k].to("cpu").numpy()
-                    for k in ("passes", "samples", "rng")}
-        np.savez_compressed(
-            path, passes=host["passes"].astype(np.float32),
-            samples=host["samples"].astype(np.uint32),
-            rng=host["rng"].astype(np.uint32),
-            x_res=self.config.x_res, y_res=self.config.y_res)
+        ``x_res`` / ``y_res``.  Span ``checkpoint``."""
+        with spans.span("checkpoint"):
+            with self._snapshot_view() as snap:
+                host = {k: snap[k].to("cpu").numpy()
+                        for k in ("passes", "samples", "rng")}
+            np.savez_compressed(
+                path, passes=host["passes"].astype(np.float32),
+                samples=host["samples"].astype(np.uint32),
+                rng=host["rng"].astype(np.uint32),
+                x_res=self.config.x_res, y_res=self.config.y_res)
         log.info("Checkpoint saved to %s", path)
 
     def load_checkpoint(self, path: str) -> None:
         """Resume from a checkpoint of this package or the JAX package;
         the resolution must be the config's.  The loaded state replaces
         ``state``; the next step copies it into the captured sample's
-        buffers, as every step does with its input."""
-        data = np.load(path)
-        if (int(data["x_res"]) != self.config.x_res
-                or int(data["y_res"]) != self.config.y_res):
-            raise ValueError("checkpoint resolution mismatch")
-        state = checkpoint_state(data, self.config, self.device)
+        buffers, as every step does with its input.  Span
+        ``checkpoint``."""
+        with spans.span("checkpoint"):
+            data = np.load(path)
+            if (int(data["x_res"]) != self.config.x_res
+                    or int(data["y_res"]) != self.config.y_res):
+                raise ValueError("checkpoint resolution mismatch")
+            state = checkpoint_state(data, self.config, self.device)
         self.state = state
         self._publish(state, self._record())
         log.info("Checkpoint loaded from %s", path)

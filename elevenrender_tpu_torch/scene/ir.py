@@ -28,6 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.device import resolve_device
 from ..ops.bvh import build_bvh
 from ..ops.hdri import pack_hdri
@@ -174,7 +175,8 @@ def build_ir(scene, config: RenderConfig | None = None,
         signs = np.zeros(0, np.float32)
         mats = np.zeros(0, np.int32)
 
-    bvh = build_bvh(verts, depth=bvh_depth)
+    with spans.span("scene.bvh"):
+        bvh = build_bvh(verts, depth=bvh_depth)
     perm = bvh["perm"]
     cam = scene.camera
     materials = materials_to_numpy(scene.materials)
@@ -226,4 +228,5 @@ def build_ir(scene, config: RenderConfig | None = None,
         use_shaders=bool((materials["shader"] >= 0).any()),
         shader_version=registry_version(),
     )
-    return config, ir_to_torch(ir_np, dev)
+    with spans.span("scene.upload"):
+        return config, ir_to_torch(ir_np, dev)

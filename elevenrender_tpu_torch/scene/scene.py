@@ -14,6 +14,7 @@ import dataclasses
 
 import numpy as np
 
+from ..core import spans
 from .camera import Camera
 from .hdri import HDRI
 from .material import MAP_SLOTS, Material
@@ -90,7 +91,9 @@ class Scene:
         return sum(m.tri_count for m in self.meshes)
 
     def build(self, config=None, bvh_depth=None, device="cuda"):
-        """Flatten to (RenderConfig, IR of tensors on ``device``)."""
+        """Flatten to (RenderConfig, IR of tensors on ``device``): span
+        ``scene.build``, with ``scene.bvh`` and ``scene.upload`` inside."""
         from .ir import build_ir
-        return build_ir(self, config=config, bvh_depth=bvh_depth,
-                        device=device)
+        with spans.span("scene.build"):
+            return build_ir(self, config=config, bvh_depth=bvh_depth,
+                            device=device)
