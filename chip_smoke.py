@@ -246,6 +246,13 @@ result line is printed):
     (a) and (b) add to row 3's launches, (d) and (e) to rows 1-2.
     ``resume_check`` and ``applications_path`` with small sizes and
     ``device="cpu"`` rehearse it on the CPU.
+24. (run after phase 10, where both scenes are built) the hit-data
+    kernels (csrc/hitdata.cu) alone, on each scene's camera rays at
+    1024x1024 traced: bit-equal to the PyTorch ops on every lane and
+    field; each kernel's ms a launch by CUDA events beside its bound
+    (the fewest bytes it can move / 3.35 TB/s) and the PyTorch ops' ms
+    by graph replay.  Phases 4 and 8 count each kernel's launches, 5 a
+    sample.
 The last two lines are one JSON object with the kernels' numbers (and
 the server path's, the host runtime's and the sharded path's) and one
 with the result: {"ok": true, "device": {...}}.
@@ -329,6 +336,148 @@ def profiled_launches(fn, times=1):
     got = tuple(map(sum, zip(*full[:times])))
     kernels = next(n for _, k, n in sessions if k == most)
     return got, len(sessions), most, kernels
+
+
+# Phase 24: the card's memory bandwidth (H100 SXM, the roofline's of
+# sweep_traverse.py), the hit-data kernels' bound.
+HBM_BYTES_PER_S = 3.35e12
+
+
+def hitdata_bytes(cfg, ir, hit_idx, mat):
+    """The fewest bytes a launch of each hit-data kernel can move on these
+    lanes (``hit_idx`` the traced hits, ``mat`` their material ids): what
+    each lane reads and writes of its own, and each table row that lanes
+    share read once.  The triangle kernel reads a lane's hit id (8) and
+    ray (24) and writes five [3] vectors, tu, tv and an int64 material id
+    (76); it reads each distinct triangle row at the clamped hit ids
+    (160 B) once, so all the misses (row 0) and the lanes that hit one
+    triangle share a read.  The material kernel reads a lane's material
+    id, tu and tv (16) and, with a normal map, its frame (36), and writes
+    albedo, emission (24), the 13 scalars (52) and the mapped normal
+    (12); it reads each distinct material row (19 floats and 7 int32
+    ids, 104 B) once, and once each texture that a used slot of those
+    rows binds, 16 B a texel."""
+    import torch
+
+    n = hit_idx.shape[0]
+    used = cfg.tex_slots_used
+    rows = torch.unique(torch.clamp(hit_idx, min=0)).numel()
+    mats = torch.unique(mat)
+    tex = ir["materials"]["tex"][mats][:, [s for s, u in enumerate(used)
+                                            if u]]
+    ids = torch.unique(tex[tex >= 0]).long()
+    atlas = ir["atlas"]
+    texels = int((atlas["w"][ids].long() * atlas["h"][ids].long()).sum())
+    lane = 16 + 24 + 52 + (36 + 12 if used[4] else 0)
+    return {"tri": n * (8 + 24 + 76) + 160 * rows,
+            "material": n * lane + 104 * mats.numel() + 16 * texels}
+
+
+def hitdata_path(label, cfg, ir, reps=20):
+    """Phase 24: each hit-data kernel (csrc/hitdata.cu) alone, on the
+    lanes of the camera rays at full width traced (bounce 0's hits, the
+    misses' -1 among them): the kernels' outputs against the PyTorch ops'
+    on every lane and field, bit for bit (a NaN where they give NaN);
+    each kernel's ms a launch by CUDA events (median of ``reps``) beside
+    its bound, the fewest bytes it can move / 3.35 TB/s
+    (``hitdata_bytes``), and beside the
+    PyTorch ops it stands in for, captured in a CUDA graph and timed by
+    replay the same way (the triangle rows and ``full_hit``; the material
+    rows, taps, normal map and ^2.2 of ``_generate_hitdata``).  Returns
+    {kernel: {"ms", "bound_ms", "share_of_bound", "bytes",
+    "pytorch_ms"}} and the lanes."""
+    import statistics
+
+    import torch
+
+    from elevenrender_tpu_torch.ops import hitdata as hd_ops
+    from elevenrender_tpu_torch.ops.camera import camera_ray
+    from elevenrender_tpu_torch.ops.intersect import full_hit, gather_tri
+    from elevenrender_tpu_torch.render import integrator
+
+    dev = ir["tris"]["packed"].device
+    n = cfg.x_res * cfg.y_res
+    idx = torch.arange(n, device=dev)
+    half = torch.full((n,), 0.5, device=dev)
+    cam = dict(ir["camera"])
+    cam["bokeh"] = cfg.bokeh
+    o, d = camera_ray(cam, cfg.x_res, cfg.y_res, idx % cfg.x_res,
+                      idx // cfg.x_res, half, half, half, half, half)
+    o, d = o.contiguous(), d.contiguous()
+    with torch.no_grad():
+        hit_idx, _ = integrator._trace(cfg, ir, o, d, sort=False)
+        got_hit, got_hd = integrator._hitdata(cfg, ir, hit_idx, o, d)
+        want_hit = full_hit(o, d, gather_tri(ir["tris"],
+                                             torch.clamp(hit_idx, min=0)))
+        want_hd = integrator._generate_hitdata(cfg, ir, want_hit, d)
+    for where, got, want in (("hit", got_hit, want_hit),
+                             ("hd", got_hd, want_hd)):
+        for k in got:
+            a, b = got[k], want[k]
+            if a.is_floating_point():
+                nan = torch.isnan(b)
+                same = (torch.equal(torch.isnan(a), nan) and torch.equal(
+                    a.contiguous().view(torch.int32)[~nan],
+                    b.contiguous().view(torch.int32)[~nan]))
+            else:
+                same = torch.equal(a, b)
+            if not same:
+                fail(f"{label}: the hit-data kernels' {where}[{k!r}] differs "
+                     f"from the PyTorch ops'")
+    misses = int((hit_idx < 0).sum())
+
+    def kernel_ms(fn):
+        fn()
+        times = []
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times)
+
+    def graphed(fn):
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.no_grad(), torch.cuda.stream(stream):
+            fn()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(graph):
+            fn()
+        return graph.replay
+
+    mats, atlas = ir["materials"], ir["atlas"]
+    runs = {
+        "tri": (lambda: hd_ops.tri(ir["tris"], hit_idx, o, d),
+                lambda: full_hit(o, d, gather_tri(
+                    ir["tris"], torch.clamp(hit_idx, min=0)))),
+        "material": (lambda: hd_ops.material(
+            mats, atlas, got_hit, cfg.tex_slots_used,
+            cfg.tex_uniform_filter),
+            lambda: integrator._generate_hitdata(cfg, ir, want_hit, d)),
+    }
+    moved = hitdata_bytes(cfg, ir, hit_idx, got_hit["mat"])
+    out = {"lanes": n, "misses": misses}
+    for name, (kernel, ops) in runs.items():
+        with torch.no_grad():
+            ms = kernel_ms(kernel)
+        ops_ms = kernel_ms(graphed(ops))
+        bound = moved[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "bound_ms": bound,
+                     "share_of_bound": bound / ms, "bytes": moved[name],
+                     "pytorch_ms": ops_ms}
+        print(f"[hitdata] {label} {name}: {ms:.4f} ms a launch of {n} "
+              f"lanes ({misses} misses), bound {bound:.4f} ms "
+              f"({moved[name]} B at least, {moved[name] / n:.1f} a lane, "
+              f"/ 3.35 TB/s, "
+              f"{100 * bound / ms:.1f}% of it); the PyTorch ops it stands "
+              f"in for {ops_ms:.3f} ms by graph replay "
+              f"({ops_ms / ms:.1f}x); bit-equal on every lane and field")
+    return out
 
 
 # The server phase's scene on the wire: the main path's camera and
@@ -1825,7 +1974,9 @@ def main():
     from elevenrender_tpu_torch import kernels, profile_step
     from elevenrender_tpu_torch import sweep_traverse as sweep
     from elevenrender_tpu_torch.convert import ir_to
+    from elevenrender_tpu_torch.core import spans
     from elevenrender_tpu_torch.experiments import bvh_wide
+    from elevenrender_tpu_torch.ops import hitdata as hd_ops
     from elevenrender_tpu_torch.ops import sort as sort_ops
     from elevenrender_tpu_torch.ops import traverse as tr
     from elevenrender_tpu_torch.ops.camera import camera_ray
@@ -1903,6 +2054,9 @@ def main():
     # summed over the driven paths (phases 4, 8 and 14): each adds what
     # the wrapper counted between its own reset and its end.
     path_launches = {}
+    # The hit-data kernels' launches (ops/hitdata.py's counters) over the
+    # timed samples of each driven forward path (phases 4 and 8).
+    hitdata_launched = {}
 
     def add_path_launches(label, expected, counted=None):
         """``counted``: the wrapper's launches by variant, read by the
@@ -2032,11 +2186,19 @@ def main():
         renderer.step(1)  # warm-up
         torch.cuda.synchronize()
         tr.reset_counts()
+        spans.reset(list(hd_ops.LAUNCHES.values()))
         t0 = time.time()
         renderer.step(n_timed)
         torch.cuda.synchronize()
         dt = time.time() - t0
         launches, any_hit = tr.launches, tr.any_hit_launches
+        hitdata_launched[label] = {k: spans.counter(v)
+                                   for k, v in hd_ops.LAUNCHES.items()}
+        if hitdata_launched[label] != dict.fromkeys(
+                hd_ops.LAUNCHES, cfg.max_bounces * n_timed):
+            fail(f"{label}: hit-data launches {hitdata_launched[label]} "
+                 f"over {n_timed} samples, expected {cfg.max_bounces} "
+                 f"of each a sample")
         add_path_launches(label, {DEFAULT: 10 * n_timed})
         closest = launches - any_hit
         tr.reset_counts()
@@ -2931,6 +3093,12 @@ def main():
     timing5, shapes5 = timing_at_recorded_shapes("config5", cfg5, ir5,
                                                  depth5)
     phase_done("phase 10", t0)
+
+    # ---- 24. the hit-data kernels alone -------------------------------------
+    t0 = time.time()
+    hitdata_numbers = {"main path": hitdata_path("main path", cfg, ir),
+                       "config5": hitdata_path("config5", cfg5, ir5)}
+    phase_done("phase 24", t0)
     err3 = {k: max(v) for k, v in errs.items()}
 
     # ---- 11. the kernel's variants against the plain version ---------------
@@ -3413,6 +3581,28 @@ def main():
                  if k_ == sweep.V1 and c_["mode"] == r_["mode"]},
              **ptxas_of("bvh_traverse_v1", "v1_kernelILb0E")},
             source="elevenrender_tpu_torch/csrc/bvh_traverse_v1.cu"))
+    # Rows 7-8, the hit-data kernels: launched on the forward paths of
+    # phases 4 and 8 (their wrappers' counts over the timed samples), held
+    # to the PyTorch ops bit for bit and timed alone in phase 24 (cell 1's
+    # scene; config 5's beside it).
+    for key, name, replaces in (
+            ("tri", "hitdata_tri_gather",
+             "none: ops/intersect.py gather_tri + full_hit (PyTorch ops)"),
+            ("material", "hitdata_material_gather",
+             "none: render/integrator.py _generate_hitdata (PyTorch ops)")):
+        t, t5 = (hitdata_numbers[k][key] for k in ("main path", "config5"))
+        kern.append(entry(
+            name, replaces,
+            hitdata_launched["main"][key] + hitdata_launched["config5"][key],
+            0.0, {"ms": t["ms"], "plain_ms": t["pytorch_ms"],
+                  "bound_ms": t["bound_ms"], "bound_by": "bytes"},
+            {"launches_forward_path": hitdata_launched["main"][key],
+             "launches_config5_path": hitdata_launched["config5"][key],
+             "bytes": t["bytes"], "ms_config5": t5["ms"],
+             "plain_ms_config5": t5["pytorch_ms"],
+             "bound_ms_config5": t5["bound_ms"], "bytes_config5": t5["bytes"],
+             **ptxas_of("hitdata", f"{name}")},
+            source="elevenrender_tpu_torch/csrc/hitdata.cu"))
     for e in kern:
         if e["launches"] < 1:
             fail(f"kernel {e['name']!r} was launched no time on its path")
@@ -3438,6 +3628,7 @@ def main():
                       "host_runtime": host, "sharding": shard,
                       "dispatch": dispatch_numbers, "gradient": gradient,
                       "inverse": inverse, "profile_child": profile_child,
+                      "hitdata": hitdata_numbers,
                       "config5_rows_card_vs_cpu": stripe5,
                       "applications": {k: v for k, v in apps.items()
                                        if k != "launches"}}))

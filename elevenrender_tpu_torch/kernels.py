@@ -39,14 +39,15 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # name -> (sources, extra nvcc flags, headers).  The sources go to nvcc;
 # the headers they include do not, but are hashed with them, so an edited
 # header rebuilds every library that shares it.  --fmad=false keeps every
-# float op of the traversals separately rounded, as their plain versions
-# are.
+# float op of the traversals and of the hit data separately rounded, as
+# their PyTorch versions are.
 _TRAVERSAL = (("--fmad=false",), ("bvh_common.cuh",))
 LIBRARIES = {
     "bvh_traverse": (("bvh_traverse.cu",), *_TRAVERSAL),
     "bvh_traverse_v1": (("bvh_traverse_v1.cu",), *_TRAVERSAL),
     "bvh_frontier": (("bvh_frontier.cu",), *_TRAVERSAL),
     "bvh_wide": (("bvh_wide.cu",), *_TRAVERSAL),
+    "hitdata": (("hitdata.cu",), ("--fmad=false",), ()),
 }
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -9,9 +9,13 @@ material row, Disney sample/eval/pdf, environment NEE with an any-hit
 shadow trace (native) or a nearest-hit self-test (compat), and the MIS
 accumulation.  Hit data comes from the material table or from the
 texture atlas per map slot, with tangent-space normal mapping and the
-programmable albedo shaders.  In native mode with point lights, each
-bounce also picks one light per lane, and the environment and light
-shadow rays go through one any-hit launch of 2N rays.
+programmable albedo shaders.  On a card, where nothing differentiates
+through them, the hit attributes and the hit data are two hand CUDA
+kernels (``ops/hitdata.py``); elsewhere, and under autograd, the PyTorch
+ops below, which give the same float32 values.  In native mode with
+point lights, each bounce also picks one light per lane, and the
+environment and light shadow rays go through one any-hit launch of 2N
+rays.
 
 Both traversals of a bounce go through ``ops.traverse.traverse``: the
 CUDA kernel on the card, its plain version on the CPU.  A sample makes no
@@ -37,8 +41,12 @@ bounce and ``accumulate`` (the pass update).  A bounce's children:
 permutations of a trace; inside ``traverse`` and ``shadow`` where they
 happen there), ``hitdata`` (the hit's attributes: ``hitdata.tri`` the
 triangle rows and the hit, ``hitdata.material`` the material rows,
-``hitdata.texture`` the texture taps) and ``shadow`` (the any-hit
-trace and its rays).  Shading is the bounce's self time.  With tracing
+``hitdata.texture`` the texture taps; the kernels' one launch of
+material rows and taps is inside ``hitdata.material`` and, where some
+slot is bound, inside ``hitdata.texture`` too) and ``shadow`` (the
+any-hit trace and its rays).  Shading is the bounce's self time.  Each
+bounce counts one ``hitdata_fused`` (the kernels) or ``hitdata_eager``
+(the PyTorch ops) host counter.  With tracing
 on, each bounce counts ``lanes`` (its lanes, a host int),
 ``alive_lanes`` (its live path lanes) and ``shadow_lanes`` (its gated
 shadow rays) on the device, the sums ``config.count_rays`` adds to
@@ -48,6 +56,7 @@ of a bounce records its spans and counters again.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import os
@@ -60,6 +69,7 @@ from ..core import spans
 from ..core.device import constant, resolve_device
 from ..core.vecmath import dot, normalize, where3
 from ..ops import hdri as hdri_ops
+from ..ops import hitdata as hitdata_ops
 from ..ops import traverse as traverse_ops
 from ..ops.camera import camera_ray
 from ..ops.disney import (disney_eval, disney_pdf, disney_sample,
@@ -74,10 +84,9 @@ WIDE_TRACE_MODES = ("pallas_wide", "pallas_wide_stream")
 BEAUTY, DENOISE, NORMAL, TANGENT, BITANGENT = range(5)
 PASSES_COUNT = 5
 
-_SCALAR_FIELDS = ("roughness", "metallic", "opacity", "transmission",
-                  "clearcoat", "anisotropic", "eta", "specular",
-                  "subsurface", "sheen", "clearcoat_gloss",
-                  "specular_tint", "sheen_tint")
+# The material row's scalars, in the packed table's order, which the
+# hit-data kernels share.
+_SCALAR_FIELDS = hitdata_ops.SCALARS
 
 
 def init_state(config, device="cuda") -> dict:
@@ -308,14 +317,18 @@ def _matmul_fp32(a, b):
     return a @ b
 
 
+def _check_material_fetch(config):
+    if config.material_fetch not in ("mm_bwd", "onehot", "gather"):
+        raise ValueError(f"material_fetch {config.material_fetch!r}: "
+                         "expected 'mm_bwd', 'onehot' or 'gather'")
+
+
 def _material_rows(config, table, m):
     """Rows ``m`` of the packed [M, 19] material table, by
     ``config.material_fetch``: "mm_bwd" gathers forward and multiplies
     backward, "onehot" multiplies both ways, "gather" (and any table of
     more than 64 rows) leaves both to autograd."""
-    if config.material_fetch not in ("mm_bwd", "onehot", "gather"):
-        raise ValueError(f"material_fetch {config.material_fetch!r}: "
-                         "expected 'mm_bwd', 'onehot' or 'gather'")
+    _check_material_fetch(config)
     if table.shape[0] <= 64:
         if config.material_fetch == "mm_bwd":
             return _GatherRowsMmBwd.apply(table, m)
@@ -385,6 +398,14 @@ def _generate_hitdata(config, ir, hit, ray_d) -> dict:
         hd["normal"] = where3(ntid >= 0, world_n, hit["normal"])
     hd["roughness"] = torch.pow(hd["roughness"], 2.2)
     hd["metallic"] = torch.pow(hd["metallic"], 2.2)
+    return _complete_hitdata(config, mats, hit, ray_d, hd, scalar)
+
+
+def _complete_hitdata(config, mats, hit, ray_d, hd, scalar):
+    """``hd`` (the mapped fields: albedo, emission, roughness, metallic,
+    opacity, transmission, normal) with the material's other scalars
+    (``scalar``, by ``_SCALAR_FIELDS`` name), the hit's frame and
+    position, and the albedo shaders on the mapped normal."""
     for k in ("clearcoat", "anisotropic", "eta", "specular", "subsurface",
               "sheen"):
         hd[k] = scalar[k]
@@ -397,9 +418,43 @@ def _generate_hitdata(config, ir, hit, ray_d) -> dict:
     hd["position"] = hit["position"]
     if config.use_shaders:
         hd["albedo"] = shader_registry.apply_shaders(
-            mats["shader"][m], hd["albedo"], hit["position"], ray_d,
-            hd["normal"], hit["gnormal"], tu, tv)
+            mats["shader"][hit["mat"]], hd["albedo"], hit["position"], ray_d,
+            hd["normal"], hit["gnormal"], hit["tu"], hit["tv"])
     return hd
+
+
+def _hitdata(config, ir, hit_idx, ray_o, ray_d):
+    """(hit, hd) of a bounce: the hit's attributes (``full_hit``'s, but
+    ``valid`` and ``t``) and its hit data (``_generate_hitdata``'s).  By
+    the two kernels of ``ops/hitdata.py`` where they serve the inputs (on
+    a card, nothing differentiated through them), else by the PyTorch
+    ops; the same float32 values either way.  Counts one
+    ``hitdata_fused`` or one ``hitdata_eager``."""
+    dev = hit_idx.device
+    if not hitdata_ops.serves(hitdata_ops.inputs(ir, ray_o, ray_d)):
+        spans.count("hitdata_eager")
+        with spans.span("hitdata.tri", dev):
+            tri = gather_tri(ir["tris"], torch.clamp(hit_idx, min=0))
+            hit = full_hit(ray_o, ray_d, tri)
+        return hit, _generate_hitdata(config, ir, hit, ray_d)
+    spans.count("hitdata_fused")
+    _check_material_fetch(config)
+    with spans.span("hitdata.tri", dev):
+        hit = hitdata_ops.tri(ir["tris"], hit_idx, ray_o, ray_d)
+    # One launch fetches the material rows and the texture taps: the
+    # material span's work and, where some slot is bound, the texture
+    # span's too.
+    with spans.span("hitdata.material", dev), (
+            spans.span("hitdata.texture", dev)
+            if any(config.tex_slots_used) else contextlib.nullcontext()):
+        got = hitdata_ops.material(ir["materials"], ir["atlas"], hit,
+                                   config.tex_slots_used,
+                                   config.tex_uniform_filter)
+    hd = {k: got[k] for k in ("albedo", "emission", "roughness", "metallic",
+                              "opacity", "transmission")}
+    hd["normal"] = got.get("normal", hit["normal"])
+    return hit, _complete_hitdata(config, ir["materials"], hit, ray_d, hd,
+                                  got)
 
 
 def sample_radiance(config, ir, rng, npix, pixel_offset=0,
@@ -482,10 +537,7 @@ def sample_radiance(config, ir, rng, npix, pixel_offset=0,
         alive = alive & ~miss
 
         with spans.span("hitdata", dev):
-            with spans.span("hitdata.tri", dev):
-                tri = gather_tri(ir["tris"], torch.clamp(hit_idx, min=0))
-                hit = full_hit(ray_o, ray_d, tri)
-            hd = _generate_hitdata(config, ir, hit, ray_d)
+            hit, hd = _hitdata(config, ir, hit_idx, ray_o, ray_d)
 
         rng, r_op = rng_mod.next_float_masked(rng, alive)
         shade = alive & (r_op <= hd["opacity"])

@@ -211,10 +211,10 @@ def test_new_walks_refuse_other_devices_and_never_fall_back():
     with pytest.raises(ValueError, match="unsupported device"):
         bvh_wide.traverse_wide(None, None, None, z, z, 3)
     assert set(kernels.LIBRARIES) == {"bvh_traverse", "bvh_traverse_v1",
-                                      "bvh_frontier", "bvh_wide"}
-    for sources, _, headers in kernels.LIBRARIES.values():
+                                      "bvh_frontier", "bvh_wide", "hitdata"}
+    for name, (sources, _, headers) in kernels.LIBRARIES.items():
         assert all((kernels.CSRC / f).exists() for f in sources + headers)
-        assert "bvh_common.cuh" in headers
+        assert ("bvh_common.cuh" in headers) == name.startswith("bvh_")
     if torch.cuda.is_available():
         return
     _, cfg, ir = demo.heightfield_scene(grid=10, res=8, device="cpu")
@@ -237,7 +237,8 @@ def test_new_walks_refuse_other_devices_and_never_fall_back():
 
 def test_a_changed_header_changes_the_library_hash(tmp_path, monkeypatch):
     """The build key covers the headers a source includes, which nvcc is
-    not handed: editing the shared header moves every library's target."""
+    not handed: editing the shared header moves the target of every
+    library that lists it, and of no other."""
     import shutil
     from elevenrender_tpu_torch import kernels
 
@@ -250,7 +251,8 @@ def test_a_changed_header_changes_the_library_hash(tmp_path, monkeypatch):
     with open(csrc / "bvh_common.cuh", "a") as f:
         f.write("// edited\n")
     for name, (out, cmd) in before.items():
-        assert kernels._target(name)[0] != out, name
+        shares = "bvh_common.cuh" in kernels.LIBRARIES[name][2]
+        assert (kernels._target(name)[0] != out) == shares, name
     with open(csrc / "bvh_wide.cu", "a") as f:
         f.write("// edited\n")
     edited = {name: kernels._target(name)[0] for name in kernels.LIBRARIES}
