@@ -167,8 +167,8 @@ result line is printed):
     ranks:
     the main path (65,522 tris, 1024x1024, 5 bounces, 4 samples) on 1
     rank over NCCL and on 2 ranks that share the card over gloo, through
-    sharded_render_step and gather_image, equal to Renderer.step(4) bit
-    for bit, with 5 closest-hit and 5 any-hit launches per sample on
+    Renderer(..., mesh=...) and its read_image, equal to Renderer.step(4)
+    bit for bit, with 5 closest-hit and 5 any-hit launches per sample on
     every rank and each rank's ms/sample and peak memory (the 2 ranks
     share one card: no scaling is measured); the sharded loss and
     gradients at 64x64 on 2 ranks equal one process's within rtol 1e-5;
@@ -948,7 +948,7 @@ def host_runtime_path(grid=HOST_GRID):
 
 def sharded_path(grid=182, res=1024, spp=4, grad_res=64, grad_spp=2,
                  device="cuda", renderer_passes=None):
-    """Phase 19 (b): the main path through the sharded step on spawned
+    """Phase 19 (b): the main path through the mesh Renderer on spawned
     ranks, 1 over NCCL and 2 sharing the card over gloo (on the CPU: 1
     and 2 over gloo), each gathered image equal to ``renderer_passes``
     (Renderer.step(spp) of the same scene, [P, npix, 4]) bit for bit;

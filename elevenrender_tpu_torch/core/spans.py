@@ -47,6 +47,18 @@ count only when tracing is on.
 Graph keys include ``enabled()`` (``render/dispatch.py cached``): a
 graph captured with the stamps in it is never replayed with tracing off,
 nor the reverse.
+
+On a pixel mesh (``join_mesh``, which ``Renderer`` calls with its mesh)
+``report()`` is a collective of the mesh's process group, which every
+rank calls at the same point, outside the timed work, until the group
+is destroyed or a ``Renderer`` without a mesh is built (which calls
+``join_mesh(None)``): a report made on one rank alone in that time waits
+for the others up to the group's timeout.  An object
+all-gather brings each rank's ``sample`` span totals and lane counters
+into every rank's report (``ranks``), and the counter ``ranks`` is the
+mesh's size.  The readback's gather is span ``gather`` with the
+counters ``gathers`` (every rank) and ``gather_bytes`` (the bytes rank 0
+received from the other ranks).
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 
 # The device stack's frames and each span's ring (csrc/spans.cu kDepth,
 # kRing); the span rows and device counters a device holds.
@@ -79,6 +92,7 @@ _counter_rows: dict = {}  # device counter -> row
 _tables: dict = {}   # card -> _Table
 _capturing: dict = {}  # card -> (the capture stream's handle, its stack)
 _local = threading.local()  # the CPU stack of this thread
+_mesh = None  # (process group, rank, world) of the pixel mesh joined
 
 
 class _Table:
@@ -358,6 +372,15 @@ def capturing(device: torch.device, stream):
         _capturing.pop(device, None)
 
 
+def join_mesh(mesh) -> None:
+    """Make ``report()`` a collective over ``mesh``'s process group (the
+    module docstring); a mesh without a group, or None, makes it this
+    process's own again."""
+    global _mesh
+    _mesh = (None if mesh is None or mesh.group is None
+             else (mesh.group, mesh.rank, mesh.world))
+
+
 def _key(name) -> str:
     return name if isinstance(name, str) else "/".join(map(str, name))
 
@@ -367,7 +390,9 @@ def report() -> dict:
     and for a span with device time "device_count", "device_ms"
     (inclusive), "self_ms"}}, "counters": {name: value, group: {key:
     value}}, "errors": device frames not counted (too deep or
-    unmatched)}.  Device times are summed over the cards and the CPU.
+    unmatched)}, and on a joined mesh "ranks": each rank's {"rank",
+    "sample": {"device_ms", "device_count"}, "lanes", "alive_lanes"}, by
+    rank.  Device times are summed over the cards and the CPU.
     Synchronises each card once."""
     out: dict = {}
     with _lock:
@@ -408,7 +433,20 @@ def report() -> dict:
         rec = out.setdefault(name, {"count": 0, "host_s": 0.0})
         rec.update(device_count=n, device_ms=inc / 1e6, self_ms=slf / 1e6)
     counters.update(device_counters)
-    return {"spans": out, "counters": counters, "errors": errors}
+    got = {"spans": out, "counters": counters, "errors": errors}
+    if _mesh is not None and dist.is_available() and dist.is_initialized():
+        grp, rank, world = _mesh
+        sample = out.get("sample", {})
+        mine = {"rank": rank,
+                "sample": {"device_ms": sample.get("device_ms", 0.0),
+                           "device_count": sample.get("device_count", 0)},
+                "lanes": counters.get("lanes", 0),
+                "alive_lanes": counters.get("alive_lanes", 0.0)}
+        every = [None] * world
+        dist.all_gather_object(every, mine, group=grp)
+        counters["ranks"] = world
+        got["ranks"] = every
+    return got
 
 
 def series(name: str) -> list:

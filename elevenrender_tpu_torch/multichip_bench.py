@@ -15,8 +15,9 @@ gloo with ``--device cpu`` and ``--devices N`` (CPU ranks share the
 host's cores, so their rows test the harness, not scaling).  A count
 above the cards is refused: ranks that share a card measure no scaling.
 
-Each rank builds the scene and runs ``shard_map_render_step(config,
-mesh)(ir)``: one warm-up sample (on a card the eager sample and the
+Each rank builds the scene and steps a ``Renderer`` on its mesh
+(``render/renderer.py``: this rank's slice, the sample captured at its
+pixel offset): one warm-up sample (on a card the eager sample and the
 capture), then, after a barrier, ``SPP`` timed samples (replays) from
 that state.  A sample of the image takes as long as its slowest rank.
 The JAX script's row is printed for each N (``rays_per_sample = 2 *
@@ -40,9 +41,8 @@ import torch.distributed as dist
 
 from .core.device import resolve_device
 from .ops import traverse as traverse_ops
-from .parallel import mesh as pm
 from .parallel.dryrun import run_ranks
-from .render.integrator import init_state
+from .render.renderer import Renderer
 from .scene.demo import heightfield_scene
 
 # The device counts the JAX script tries, in its order.
@@ -77,24 +77,20 @@ def bench_rank(mesh, task: dict) -> dict:
     _, config, ir = heightfield_scene(grid=task["grid"], res=task["res"],
                                       spp=task["spp"], compat=False,
                                       device=mesh.device)
-    ir = pm.replicate_ir(ir, mesh)
-    state = pm.shard_render_state(init_state(config, mesh.device), mesh)
-    step = pm.shard_map_render_step(config, mesh)(ir)
+    renderer = Renderer(config, ir, mesh=mesh)
 
     def sync():
         if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
 
     traverse_ops.reset_counts()
-    with torch.no_grad():
-        state = step(ir, state)
-        sync()
-        dist.barrier(group=mesh.group)
-        t0 = time.perf_counter()
-        for _ in range(task["spp"]):
-            state = step(ir, state)
-        sync()
-        seconds = (time.perf_counter() - t0) / task["spp"]
+    renderer.step(1)
+    sync()
+    dist.barrier(group=mesh.group)
+    t0 = time.perf_counter()
+    renderer.step(task["spp"])
+    sync()
+    seconds = (time.perf_counter() - t0) / task["spp"]
     every = [None] * mesh.world
     dist.all_gather_object(every, seconds, group=mesh.group)
     return {"s_per_sample": max(every),

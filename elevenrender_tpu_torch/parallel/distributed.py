@@ -12,14 +12,13 @@ identically on every rank; each rank holds only its slice of the image.
 Usage on each rank (torchrun sets the environment ``initialize``
 reads)::
 
-    from elevenrender_tpu_torch.parallel import distributed, mesh as pm
+    from elevenrender_tpu_torch.parallel import distributed
+    from elevenrender_tpu_torch.render.renderer import Renderer
     distributed.initialize()
     mesh = distributed.global_mesh()
-    ir = pm.replicate_ir(ir, mesh)        # the scene built on every rank
-    state = pm.shard_render_state(init_state(config, mesh.device), mesh)
-    step = pm.sharded_render_step(config, mesh)
-    state = step(ir, state)
-    passes = distributed.gather_image(state["passes"])   # rank 0 only
+    renderer = Renderer(config, ir, mesh=mesh)   # the scene on every rank
+    renderer.step(8)
+    image = renderer.read_image()                # rank 0 only
 
 ``parallel/dryrun.py`` spawns such ranks on one machine.
 """
@@ -84,6 +83,26 @@ def global_mesh(device="cuda") -> PixelMesh:
     return make_mesh(device=device)
 
 
+def gather_pixels(t: torch.Tensor, mesh: PixelMesh, dim: int = 0):
+    """The ranks' slices of ``t`` joined along the pixel axis ``dim``, on
+    rank 0, on ``t``'s device, and ``None`` on every other rank; ``t``
+    as it is on a mesh without a process group.  A gather only reads its
+    input, so the slice is sent as it lies (gloo takes a host copy of a
+    CUDA tensor)."""
+    if mesh.group is None:
+        return t
+    src = (_staged(t, mesh) if t.is_cuda
+           and dist.get_backend(mesh.group) == "gloo"
+           else t.detach().contiguous())
+    if mesh.rank != 0:
+        dist.gather(src, None, dst=0, group=mesh.group)
+        return None
+    parts = [torch.empty_like(src) for _ in range(mesh.world)]
+    dist.gather(src, parts, dst=0, group=mesh.group)
+    whole = parts[0] if mesh.world == 1 else torch.cat(parts, dim=dim)
+    return whole.to(t.device)
+
+
 def gather_image(passes: torch.Tensor, mesh: PixelMesh | None = None):
     """The whole pass stack [P, npix, 4] on rank 0, on ``passes``'s
     device, and ``None`` on every other rank: the forward path's only
@@ -91,12 +110,4 @@ def gather_image(passes: torch.Tensor, mesh: PixelMesh | None = None):
     ``passes`` as it is."""
     if mesh is None:
         mesh = make_mesh(device=passes.device)
-    if mesh.group is None:
-        return passes
-    staged = _staged(passes, mesh)
-    if mesh.rank != 0:
-        dist.gather(staged, None, dst=0, group=mesh.group)
-        return None
-    parts = [torch.empty_like(staged) for _ in range(mesh.world)]
-    dist.gather(staged, parts, dst=0, group=mesh.group)
-    return torch.cat(parts, dim=1).to(passes.device)
+    return gather_pixels(passes, mesh, dim=1)

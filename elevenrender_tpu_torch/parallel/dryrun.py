@@ -5,9 +5,11 @@
 The counterpart of the JAX package's ``__graft_entry__.py
 dryrun_multichip``: ``dryrun_multichip(n)`` spawns ``n`` ranks (one
 process each, joined by ``torch.distributed``) on the 32x32 Cornell box.
-Every rank builds the scene, runs one sharded forward step
-(``mesh.sharded_render_step``, on a card a replay of the captured
-sample; rank 0 gathers the image), then the sharded loss and gradients
+Every rank builds the scene, renders one sample of its slice through
+``Renderer(config, ir, mesh=mesh)`` (on a card a replay of the sample
+captured at the slice's offset) and reads the image back
+(``Renderer.read_image``: rank 0 gets the gathered image), then the
+sharded loss and gradients
 against a zero target (``mesh.sharded_loss_and_grad``, on a card a
 replay of the captured loss-and-gradient graph; gradients
 all-reduced).  The parent
@@ -73,19 +75,22 @@ def run_tasks(mesh: pm.PixelMesh, tasks: list) -> list:
     bool}``; a "grad" task's target is a black image.  Every rank builds
     the scene itself and renders its slice from fresh state.
 
-    A render returns ``passes`` (the gathered [P, npix, 4] as numpy on
-    rank 0, None elsewhere), this rank's ``launches`` (closest-hit,
-    any-hit kernel launches over the samples), ``ms_per_sample`` (host
-    clock, synchronized), ``peak_mib`` (CUDA) and ``tris``.  A grad
-    returns ``loss``, ``grads`` (the material tree, numpy) and ``ms``
-    (host clock, synchronized).  On a card the steps are graph replays
-    (``mesh.sharded_render_step``, ``mesh.sharded_loss_and_grad``): with
-    ``warmup`` the first call, which runs eagerly and captures, is made
-    before the timed ones."""
+    A render steps a ``Renderer`` on ``mesh`` ``samples`` times and
+    returns ``passes`` (the gathered [P, npix, 4] of ``read_image`` as
+    numpy on rank 0, None elsewhere), this rank's ``launches``
+    (closest-hit, any-hit kernel launches over the samples),
+    ``ms_per_sample`` (host clock, synchronized), ``peak_mib`` (CUDA)
+    and ``tris``.  A grad returns ``loss``, ``grads`` (the material
+    tree, numpy) and ``ms`` (host clock, synchronized).  On a card the
+    steps are graph replays (the renderer's captured sample,
+    ``mesh.sharded_loss_and_grad``): with ``warmup`` the first call,
+    which runs eagerly and captures, is made before the timed ones (for
+    a render, by a renderer of its own on the same IR, whose capture the
+    timed one replays)."""
     from ..convert import params_to_numpy
     from ..ops import traverse as tr
     from ..render.grad import float_subtree
-    from ..render.integrator import init_state
+    from ..render.renderer import Renderer
 
     cuda = mesh.device.type == "cuda"
 
@@ -121,25 +126,20 @@ def run_tasks(mesh: pm.PixelMesh, tasks: list) -> list:
                         "grads": params_to_numpy(grads),
                         "ms": (time.perf_counter() - t0) * 1e3})
             continue
-        step = pm.sharded_render_step(config, mesh)
-        with torch.no_grad():
-            if task.get("warmup"):
-                step(ir, pm.shard_render_state(
-                    init_state(config, mesh.device), mesh))
-            state = pm.shard_render_state(init_state(config, mesh.device),
-                                          mesh)
-            sync()
-            if cuda:
-                torch.cuda.reset_peak_memory_stats(mesh.device)
-            tr.reset_counts()
-            t0 = time.perf_counter()
-            for _ in range(task["samples"]):
-                state = step(ir, state)
-            sync()
-            seconds = time.perf_counter() - t0
-            launches = (tr.launches - tr.any_hit_launches,
-                        tr.any_hit_launches)
-            passes = distributed.gather_image(state["passes"], mesh)
+        if task.get("warmup"):
+            Renderer(config, ir, mesh=mesh).step(1)
+        renderer = Renderer(config, ir, mesh=mesh)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+        tr.reset_counts()
+        t0 = time.perf_counter()
+        renderer.step(task["samples"])
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = (tr.launches - tr.any_hit_launches, tr.any_hit_launches)
+        image = renderer.read_image()
+        passes = None if image is None else image["passes"]
         out.append({
             "passes": None if passes is None else passes.cpu().numpy(),
             "launches": launches,

@@ -11,7 +11,11 @@ exactly as in one process.
 
 The forward render needs no collective: no op of a sample sums across
 rays.  The image is gathered once per readback
-(``distributed.gather_image``).  Gradients of a pixel loss with respect
+(``distributed.gather_pixels``).  The port renders on a mesh through
+``Renderer(config, ir, mesh=mesh)`` (``render/renderer.py``), which
+holds the rank's slice and replays the sample captured at its offset;
+``sharded_render_step`` and ``shard_map_render_step`` are the same
+replay under the JAX package's call, kept for parity with it.  Gradients of a pixel loss with respect
 to the replicated scene tables are all-reduced (``sharded_loss_and_grad``),
 the ``psum`` that GSPMD inserts for the JAX package.
 

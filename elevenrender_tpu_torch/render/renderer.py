@@ -26,6 +26,19 @@ progress through a second SYCL queue while it renders.  Here:
 
 On the CPU the thread runs the same torch ops, with no streams and no
 graph.
+
+On a pixel mesh (``parallel/mesh.py``: one process a device, the image's
+pixels split into contiguous slices over the ranks) the renderer holds
+only its rank's slice of the state, and each sample replays the sample
+captured at the slice's global pixel offset: every pixel gets its own
+camera ray and RNG stream, so the image is the one-process image bit for
+bit, and no collective runs inside a sample.  Every rank calls the same
+methods in the same order.  The readback (``get_pass``, ``read_image``)
+gathers the image to rank 0 (``parallel/distributed.py gather_pixels``,
+span ``gather``) and returns ``None`` on the other ranks; the ray count
+is summed over the ranks.  ``start``, the checkpoints and ``profile``
+would need the whole state in one process and are refused on a mesh of
+more than one rank.
 """
 
 from __future__ import annotations
@@ -42,6 +55,8 @@ import torch
 from ..convert import ir_to
 from ..core import child, spans
 from ..core.device import resolve_device
+from ..parallel.distributed import gather_pixels
+from ..parallel.mesh import all_reduce_sum, shard_render_state
 from ..utils.logging import get_logger
 from . import denoise as denoise_mod
 from .dispatch import render_samples_jit_safe
@@ -108,16 +123,34 @@ def checkpoint_state(data, config, device) -> dict:
 
 class Renderer:
     """Progressive path tracer over a built scene IR.  ``device`` None
-    means ``find_device(config.device)``."""
+    means ``find_device(config.device)``, or the mesh's device.  With
+    ``mesh`` (a ``parallel.mesh.PixelMesh``) the renderer renders this
+    rank's slice of the image (the module docstring)."""
 
-    def __init__(self, config, ir, device=None):
-        if device is None:
+    def __init__(self, config, ir, device=None, mesh=None):
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        elif device is None:
             device = find_device(config.device)
         self.device = resolve_device(device)
         self.config = config
+        self.mesh = mesh
         self._cuda = self.device.type == "cuda"
         self.ir = ir_to(ir, self.device)
         self.state = init_state(config, self.device)
+        self._offset = 0
+        if mesh is not None:
+            self._offset = mesh.pixel_offset(config.x_res * config.y_res)
+            self.state = shard_render_state(self.state, mesh)
+            # The readback's mark that every rank's slice is ready.
+            self._ready = torch.zeros(1, dtype=torch.int32,
+                                      device=self.device)
+        # A report is a collective of this renderer's mesh, and of no
+        # mesh after a renderer without one (core/spans.py).
+        spans.join_mesh(mesh)
         # The render thread's stream and the readback stream (card only).
         self._stream = self._readback = None
         if self._cuda:
@@ -152,7 +185,15 @@ class Renderer:
         ``render/grad.py``'s entry points)."""
         self.state = render_samples_jit_safe(self.config, self.ir,
                                              self.state, n,
+                                             pixel_offset=self._offset,
                                              device=self.device)
+
+    def _whole(self, what: str) -> None:
+        """Refuse ``what`` on a mesh of more than one rank."""
+        if self.mesh is not None and self.mesh.world > 1:
+            raise NotImplementedError(
+                f"{what} on a pixel mesh of {self.mesh.world} ranks: each "
+                f"rank holds only its slice of the image")
 
     def step(self, n: int = 1) -> None:
         """Run n progressive samples synchronously (span ``step``)."""
@@ -173,7 +214,8 @@ class Renderer:
         ``samples_per_dispatch`` (default ``min(config.block_size,
         recommended_samples_per_dispatch)``), with a snapshot after each
         chunk.  A render already running stops at its next chunk
-        boundary first."""
+        boundary first.  Refused on a mesh of more than one rank."""
+        self._whole("start")
         target = sample_target or self.config.sample_target
         if samples_per_dispatch is None:
             samples_per_dispatch = min(
@@ -242,10 +284,68 @@ class Renderer:
                 t.record_stream(self._readback)
             yield state
 
+    def _gathered(self) -> bool:
+        return self.mesh is not None and self.mesh.group is not None
+
+    def _gather(self, parts: dict) -> dict | None:
+        """{name: (this rank's slice, its pixel axis)} joined into the
+        whole image's on rank 0 (None on the others), inside the
+        snapshot view: span ``gather``, counters ``gathers`` and
+        ``gather_bytes``.  The result is allocated on the current
+        stream.  The span opens once every rank's slice is ready: a
+        4-byte all-reduce before it ends only when each rank's readback
+        has reached it, so the span holds the transfer and the joining,
+        not the wait for the slowest rank's sample."""
+        mesh = self.mesh
+        all_reduce_sum(self._ready, mesh)
+        with spans.span("gather", self.device):
+            out = {k: gather_pixels(t, mesh, dim)
+                   for k, (t, dim) in parts.items()}
+        spans.count("gathers")
+        if mesh.rank == 0:
+            spans.count("gather_bytes", (mesh.world - 1) * sum(
+                t.numel() * t.element_size() for t, _ in parts.values()))
+            return out
+        return None
+
+    def _handed_over(self, tensors) -> None:
+        """Let the caller's stream use ``tensors``, made on the readback
+        stream: it waits for that stream, and the allocator keeps their
+        memory until the caller's work on them is done."""
+        if not self._cuda:
+            return
+        current = torch.cuda.current_stream(self.device)
+        current.wait_stream(self._readback)
+        for t in tensors:
+            t.record_stream(current)
+
+    def read_image(self) -> dict | None:
+        """The snapshot's whole image on this renderer's device:
+        ``passes`` [P, H*W, 4], ``samples`` [H*W] and, where the config
+        counts rays, ``ray_count``, ready for the caller's stream; no
+        copy to the host.  On a mesh every rank calls it: rank 0 gets
+        the image gathered from the ranks' slices and the ranks' ray
+        counts summed, every other rank ``None``.  Span ``readback``."""
+        with spans.span("readback"), self._snapshot_view() as snap:
+            out = {"passes": snap["passes"], "samples": snap["samples"]}
+            count = snap.get("ray_count")
+            if self._gathered():
+                if count is not None:
+                    count = all_reduce_sum(count, self.mesh)
+                out = self._gather({"passes": (out["passes"], 1),
+                                    "samples": (out["samples"], 0)})
+                if out is None:
+                    return None
+            if count is not None:
+                out["ray_count"] = count
+        self._handed_over(out.values())
+        return out
+
     def get_pass(self, name: str, apply_denoise: bool | None = None
-                 ) -> np.ndarray:
+                 ) -> np.ndarray | None:
         """One pass of the snapshot as float32 [H*W*4] (RGBA per pixel)
-        on the host.
+        on the host; on a mesh, on rank 0 (every rank calls it; the
+        others get ``None``).
 
         "denoise" is the beauty pass through the denoiser, guided by the
         normal pass and the first-hit albedo (which the DENOISE slot
@@ -263,6 +363,15 @@ class Renderer:
             apply_denoise = self.config.denoise
         with self._snapshot_view() as snap:
             passes = snap["passes"]
+            if self._gathered():
+                # The denoiser reads three passes; one pass is sent alone.
+                got = self._gather({"passes": (
+                    passes if pid == DENOISE else passes[pid:pid + 1], 1)})
+                if got is None:
+                    return None
+                passes = got["passes"]
+                if pid != DENOISE:
+                    pid = 0
             if pid == DENOISE:
                 out = denoise_mod.denoise(
                     w, h, passes[BEAUTY].reshape(-1),
@@ -276,9 +385,12 @@ class Renderer:
             return passes[pid].to("cpu").numpy().astype(
                 np.float32).reshape(-1)
 
-    def get_render_info(self) -> dict:
+    def get_render_info(self) -> dict | None:
         """Progress as the snapshot's first pixel's sample count (span
-        ``readback``)."""
+        ``readback``).  On a mesh rank 0 holds that pixel, and every
+        other rank gets ``None``."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return None
         with spans.span("readback"), self._snapshot_view() as snap:
             samples = int(snap["samples"][0])
         if self.config.compat:
@@ -291,6 +403,7 @@ class Renderer:
         counts, RNG streams) as the JAX package writes it: an ``.npz``
         with ``passes`` float32, ``samples`` and ``rng`` uint32, and
         ``x_res`` / ``y_res``.  Span ``checkpoint``."""
+        self._whole("save_checkpoint")
         with spans.span("checkpoint"):
             with self._snapshot_view() as snap:
                 host = {k: snap[k].to("cpu").numpy()
@@ -308,6 +421,7 @@ class Renderer:
         ``state``; the next step copies it into the captured sample's
         buffers, as every step does with its input.  Span
         ``checkpoint``."""
+        self._whole("load_checkpoint")
         with spans.span("checkpoint"):
             data = np.load(path)
             if (int(data["x_res"]) != self.config.x_res
@@ -354,7 +468,9 @@ class Renderer:
         ``PROFILE_TRIES`` times; a first sample, taken back, sets the
         count to reach.  The sessions' events go into the one file
         (their timestamps share the process's time base; each thread's
-        and process's naming records are kept once)."""
+        and process's naming records are kept once).  Refused on a mesh of
+        more than one rank."""
+        self._whole("profile")
         if child.traces_in_child(self.device):
             state = child.call_in_child(
                 _profile_in_child, self.config, child.to_cpu(self.ir),
@@ -420,10 +536,13 @@ class Renderer:
         log.info("Profile written to %s", path)
 
     def save_pass(self, name: str, path: str) -> None:
-        """A pass as PNG, gamma 1/2.2 (the reference's save_pass)."""
+        """A pass as PNG, gamma 1/2.2 (the reference's save_pass); on a
+        mesh rank 0 writes it."""
         from ..utils.image import write_png
-        data = self.get_pass(name).reshape(
-            self.config.y_res, self.config.x_res, 4)
+        data = self.get_pass(name)
+        if data is None:
+            return
+        data = data.reshape(self.config.y_res, self.config.x_res, 4)
         img = np.clip(np.abs(data), 0.0, None) ** (1.0 / 2.2)
         write_png(path, np.clip(img, 0.0, 1.0))
         log.info("Saved %s", path)
